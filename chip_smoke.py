@@ -1,0 +1,546 @@
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--seed 0]
+
+Run from the root of a checkout on a machine with an NVIDIA H100 (Hopper).
+It imports the port (``src/repro_torch``), never JAX or the JAX package,
+and exits non-zero — printing no result line — when no CUDA device is
+available or when the package is missing.
+
+Phases (every failed check raises; nothing is caught):
+
+1. build — compile the hand-written CUDA kernels (``src/repro_torch/csrc``,
+   ``nvcc`` for ``sm_90a``) and print the seconds it took;
+2. kernels — each kernel against its plain PyTorch version on the card, at
+   the shapes the main path gives it: exact for hash_partition, probe and
+   min/max, counts exact, float sums to ``1e-5 * sum|v|`` per group; times
+   with CUDA events beside the bytes bound and a library yardstick;
+3. main path, 1 shard, full size — ``DataFrame.from_dict`` of left = 2^25
+   rows ``{k, g, v}`` and right = 2^23 rows ``{k, w}`` (the order of TPC-H
+   SF10 ``lineitem`` against ``orders``), inner join on ``k``, a groupby on
+   ``g`` (hash path, both segment kernels) and one on ``k`` (sort path),
+   checked against a numpy oracle; the exchange counter must read 0;
+4. the same data on 4 virtual shards (launches hash_partition): the same
+   rows, zero overflow, 3 exchanges;
+5. set ops on 4 shards, 2^22 rows a side: union and difference against
+   ``np.union1d`` / ``np.setdiff1d``;
+6. summary — the ``kernels`` JSON line, the card's name and power limit,
+   and as the last line ``{"ok": true, "device": {...}}``.
+
+Wall times of phases 3-5 are medians of 3 runs after one checked warm-up
+run; kernel launch counts are those of the checked runs.  ``--profile``
+adds one ``torch.profiler`` run of each of phases 3-5 (device busy share,
+top kernels; tables in ``chiprun_out/profile_*.txt``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+
+LEFT_ROWS, RIGHT_ROWS = 1 << 25, 1 << 23
+GROUPS, G_OUT_CAP = 1024, 2048
+SET_ROWS = 1 << 22
+G_AGGS = [("v", "sum"), ("v", "mean"), ("v", "min"), ("v", "max"),
+          ("w", "sum"), ("v", "count")]
+
+
+def check(cond, what: str) -> None:
+    if not bool(cond):
+        raise AssertionError(f"check failed: {what}")
+
+
+def emit(tag: str, **fields) -> None:
+    print(json.dumps({"phase": tag, **fields}), flush=True)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean device time of ``fn`` in ms over ``reps`` calls, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, nops: float = 0.0):
+    """Least time for the work on this card: ``(ms, "bytes"|"operations")``."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bit_key(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def canonical(rows: dict, names) -> torch.Tensor:
+    """Rows as an ``(n, len(names))`` int64 matrix, lexsorted — a bitwise
+    multiset fingerprint computed on the card."""
+    cols = [bit_key(rows[n]).to(torch.int64) for n in names]
+    order = torch.arange(cols[0].shape[0], device=cols[0].device)
+    for c in reversed(cols):
+        order = order[torch.argsort(c[order], stable=True)]
+    return torch.stack([c[order] for c in cols], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# data and oracles
+# ---------------------------------------------------------------------------
+def make_data(seed: int):
+    rng = np.random.default_rng(seed)
+    left = {"k": rng.integers(0, RIGHT_ROWS, LEFT_ROWS, dtype=np.int32),
+            "g": rng.integers(0, GROUPS, LEFT_ROWS, dtype=np.int32),
+            "v": rng.standard_normal(LEFT_ROWS, dtype=np.float32)}
+    right = {"k": rng.permutation(RIGHT_ROWS).astype(np.int32),
+             "w": rng.standard_normal(RIGHT_ROWS, dtype=np.float32)}
+    sets = {"a": rng.integers(0, 1 << 23, SET_ROWS, dtype=np.int32),
+            "b": rng.integers(0, 1 << 23, SET_ROWS, dtype=np.int32)}
+    return left, right, sets
+
+
+def make_oracle(left, right):
+    """float64 numpy answers of the main path."""
+    w_of_key = np.empty(RIGHT_ROWS, np.float32)
+    w_of_key[right["k"]] = right["w"]
+    w = w_of_key[left["k"]]  # every left row matches exactly one right row
+    order = np.argsort(left["g"], kind="stable")
+    gs = left["g"][order]
+    starts = np.flatnonzero(np.r_[True, gs[1:] != gs[:-1]])
+    vs, ws = left["v"][order], w[order]
+    g = {"g": gs[starts],
+         "v_count": np.diff(np.r_[starts, LEFT_ROWS]),
+         "v_min": np.minimum.reduceat(vs, starts),
+         "v_max": np.maximum.reduceat(vs, starts),
+         "v_sum": np.add.reduceat(vs.astype(np.float64), starts),
+         "v_abs": np.add.reduceat(np.abs(vs).astype(np.float64), starts),
+         "w_sum": np.add.reduceat(ws.astype(np.float64), starts),
+         "w_abs": np.add.reduceat(np.abs(ws).astype(np.float64), starts)}
+    cnt = np.bincount(left["k"], minlength=RIGHT_ROWS)
+    present = np.flatnonzero(cnt)
+    k = {"k": present.astype(np.int32),
+         "v_sum": np.bincount(left["k"], left["v"].astype(np.float64),
+                              RIGHT_ROWS)[present],
+         "v_abs": np.bincount(left["k"], np.abs(left["v"]).astype(np.float64),
+                              RIGHT_ROWS)[present]}
+    return {"w_of_key": w_of_key, "g": g, "k": k}
+
+
+def check_close(got, ref, scale, what):
+    err = np.abs(np.asarray(got, np.float64) - ref)
+    check((err <= 1e-5 * scale).all(),
+          f"{what}: max |err|/sum|v| = {float((err / scale).max())}")
+
+
+def check_main_path(res, left_dev, oracle, tag: str):
+    """Exact row counts, keys, counts and min/max; sums within
+    ``1e-5 * sum|v|`` per group of the float64 oracle."""
+    j = res["j"].table.valid_rows()
+    check(j["k"].shape[0] == LEFT_ROWS, f"{tag}: join rows")
+    check(bool(j["_matched"].all()), f"{tag}: every join row matched")
+    wk = torch.from_numpy(oracle["w_of_key"]).to(j["k"].device)
+    check(torch.equal(j["w"], wk[j["k"].long()]), f"{tag}: join payload w")
+    check(torch.equal(canonical(j, ["k", "g", "v"]),
+                      canonical(left_dev, ["k", "g", "v"])),
+          f"{tag}: join rows are the left rows")
+
+    g = res["g"].to_numpy()
+    order = np.argsort(g["g"])
+    g = {k: v[order] for k, v in g.items()}
+    o = oracle["g"]
+    check(np.array_equal(g["g"], o["g"]), f"{tag}: groupby g keys")
+    check(np.array_equal(g["v_count"], o["v_count"]), f"{tag}: g counts")
+    check(np.array_equal(g["v_min"], o["v_min"]), f"{tag}: g min")
+    check(np.array_equal(g["v_max"], o["v_max"]), f"{tag}: g max")
+    check_close(g["v_sum"], o["v_sum"], o["v_abs"], f"{tag}: g v_sum")
+    check_close(g["w_sum"], o["w_sum"], o["w_abs"], f"{tag}: g w_sum")
+    check_close(g["v_mean"], o["v_sum"] / o["v_count"],
+                o["v_abs"] / o["v_count"], f"{tag}: g v_mean")
+
+    k = res["k"].to_numpy()
+    order = np.argsort(k["k"], kind="stable")
+    o = oracle["k"]
+    check(np.array_equal(k["k"][order], o["k"]), f"{tag}: groupby k keys")
+    check_close(k["v_sum"][order], o["v_sum"], o["v_abs"], f"{tag}: k v_sum")
+    return j, g
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+def main_path(DataFrame, ctx, left, right, bucket_factor):
+    """The slice's main path through the user entry points."""
+    ldf = DataFrame.from_dict(left, ctx, bucket_factor=bucket_factor)
+    rdf = DataFrame.from_dict(right, ctx, bucket_factor=bucket_factor)
+    j = ldf.join(rdf, ["k"])
+    g = j.groupby(["g"], G_AGGS, out_capacity=G_OUT_CAP)
+    k = j.groupby(["k"], [("v", "sum")])
+    torch.cuda.synchronize()
+    return {"j": j, "g": g, "k": k}
+
+
+def set_ops(DataFrame, ctx, sets):
+    a = DataFrame.from_dict({"k": sets["a"]}, ctx, bucket_factor=2.0)
+    b = DataFrame.from_dict({"k": sets["b"]}, ctx, bucket_factor=2.0)
+    u, d = a.union(b), a.difference(b)
+    torch.cuda.synchronize()
+    return {"union": u, "difference": d}
+
+
+class Launches:
+    """Reset every kernel's launch counter, then read them."""
+
+    def __init__(self):
+        from repro_torch.core import array_ops
+        from repro_torch.kernels.hash_join import kernel as hjk
+        from repro_torch.kernels.hash_partition import kernel as hpk
+        from repro_torch.kernels.segment_reduce import kernel as srk
+        self.counters = {"hash_partition": hpk.LAUNCHES, "probe": hjk.LAUNCHES,
+                         "segment_reduce_fused": srk.FUSED_LAUNCHES,
+                         "segment_reduce": srk.LAUNCHES}
+        self.exchanges = array_ops.EXCHANGES
+        self.total = dict.fromkeys(self.counters, 0)
+
+    def reset(self):
+        for c in self.counters.values():
+            c.reset()
+        self.exchanges.reset()
+
+    def read(self):
+        got = {k: c.n for k, c in self.counters.items()}
+        for k, n in got.items():
+            self.total[k] += n
+        return got, self.exchanges.n
+
+
+def profile_run(tag: str, fn) -> None:
+    """One run of ``fn`` under ``torch.profiler``: device busy share and
+    the top kernels by device time, written to ``chiprun_out/``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    # device work only: kernels and copies (operator rows repeat their
+    # kernels' time; the profiler's own buffer request is not work)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.key != "Activity Buffer Request"]
+    busy_us = sum(getattr(e, key) for e in device)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", f"profile_{tag}.txt")
+    with open(path, "w") as f:
+        f.write(events.table(sort_by=key, row_limit=40))
+    top = sorted(device, key=lambda e: getattr(e, key), reverse=True)[:8]
+    emit("profile", run=tag, wall_s=wall, device_busy_s=busy_us / 1e6,
+         busy_share=busy_us / 1e6 / wall,
+         top=[(e.key, getattr(e, key) / 1e3) for e in top])
+
+
+def timed_runs(fn, runs: int = 3):
+    """Wall seconds of ``runs`` calls (each ends synchronized)."""
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def visited_slots(table_row, ph1, ph2, pvalid, max_probes):
+    """Distinct slots the probe walk reads (for the bytes bound)."""
+    slots = table_row.shape[0]
+    h1 = ph1.to(torch.int64) & 0xFFFFFFFF
+    step = (ph2.to(torch.int64) & 0xFFFFFFFF) | 1
+    seen = torch.zeros(slots, dtype=torch.bool, device=table_row.device)
+    active = pvalid.clone()
+    j = 0
+    while j < max_probes and bool(active.any()):
+        slot = (h1 + j * step) & (slots - 1)
+        seen[slot[active]] = True
+        active &= table_row[slot] >= 0
+        j += 1
+    return int(seen.sum())
+
+
+def kernel_phase(left, right, dev):
+    """Every kernel against its plain version at the main path's shapes."""
+    from repro_torch.core import HPTMTContext
+    from repro_torch.core.exchange import key_compare_u32
+    from repro_torch.core.table import _as_u32, hash_columns
+    from repro_torch.core.table_ops import _hash_slots
+    from repro_torch.dataframe import DataFrame
+    from repro_torch.kernels.hash_join import kernel as hjk
+    from repro_torch.kernels.hash_join import ref as hjr
+    from repro_torch.kernels.hash_partition import kernel as hpk
+    from repro_torch.kernels.hash_partition import ref as hpr
+    from repro_torch.kernels.segment_reduce import kernel as srk
+    from repro_torch.kernels.segment_reduce import ref as srr
+
+    rows = []
+
+    # 1. hash_partition: one shard of the 4-shard left table (phase 4)
+    t4 = DataFrame.from_dict({"k": left["k"]}, HPTMTContext(4, dev),
+                             bucket_factor=2.0).table
+    keys = _as_u32(t4.columns["k"][0])[:, None].contiguous()
+    cap = keys.shape[0]
+    valid = torch.arange(cap, device=dev) < t4.counts[0]
+    for hashes in (False, True):
+        got = hpk.hash_partition_cuda(keys, valid, 4, return_hashes=hashes)
+        exp = hpr.hash_partition_lanes(keys, valid, 4, return_hashes=hashes)
+        for a, b in zip(got, exp):
+            check(torch.equal(a, b), f"hash_partition (hashes={hashes})")
+    ms = cuda_ms(lambda: hpk.hash_partition_cuda(keys, valid, 4, True))
+    plain = cuda_ms(lambda: hpr.hash_partition_lanes(keys, valid, 4, True))
+    b_ms, b_by = bound(cap * (4 + 1) + cap * 12 + 4 * 4, cap * 40)
+    rows.append(dict(name="hash_partition", shape=f"keys ({cap}, 1), P=4",
+                     max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None))
+    del t4, keys, valid, got, exp
+
+    # 2. probe: the 1-shard join (build 2^23 rows into 2^25 slots)
+    rk = torch.from_numpy(right["k"]).to(dev)
+    lk = torch.from_numpy(left["k"]).to(dev)
+    rh1, rh2 = hash_columns([rk])
+    lh1, lh2 = hash_columns([lk])
+    slots = _hash_slots(RIGHT_ROWS)
+    table, unplaced = hjr.build_table(rh1, rh2,
+                                      torch.ones_like(rk, dtype=torch.bool),
+                                      slots, 64)
+    check(int(unplaced) == 0, "build table placed every row")
+    rlanes = key_compare_u32({"k": rk}, ["k"])
+    llanes = key_compare_u32({"k": lk}, ["k"])
+    sh2, skeys = hjr.slot_payload(table, rh2, rlanes)
+    pvalid = torch.ones_like(lk, dtype=torch.bool)
+    args = (table, sh2, skeys, lh1, lh2, llanes, pvalid, 1, 64)
+    got, exp = hjk.probe_cuda(*args), hjr.probe(*args)
+    for a, b in zip(got, exp):
+        check(torch.equal(a, b), "probe bit-identical")
+    check(bool((got[0] == 1).all()), "every probe row matched once")
+    ms = cuda_ms(lambda: hjk.probe_cuda(*args))
+    plain = cuda_ms(lambda: hjr.probe(*args), reps=2)
+    n = LEFT_ROWS
+    seen = visited_slots(table, lh1, lh2, pvalid, 64)
+    b_ms, b_by = bound(n * (4 + 4 + 4 + 1) + n * (4 + 4 + 1) + seen * 12)
+    rows.append(dict(name="probe", shape=f"N={n}, S={slots}, L=1, M=1",
+                     max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None, slots_read=seen))
+    del got, exp, args, table, sh2, skeys
+
+    # 3./4. segment reductions: the 1-shard hash groupby on g
+    g = torch.from_numpy(left["g"]).to(dev)
+    v = torch.from_numpy(left["v"]).to(dev)
+    w_of_key = torch.empty(RIGHT_ROWS, dtype=torch.float32, device=dev)
+    w_of_key[rk.long()] = torch.from_numpy(right["w"]).to(dev)
+    w = w_of_key[lk.long()]
+    gslots = _hash_slots(G_OUT_CAP)
+    gh1, gh2 = hash_columns([g])
+    _, seg, unres = hjr.build_table_unique(
+        gh1, gh2, key_compare_u32({"g": g}, ["g"]),
+        torch.ones_like(g, dtype=torch.bool), gslots, 64)
+    check(not bool(unres.any()), "every group resolved")
+    S = gslots  # the sentinel slot of unresolved rows is dropped
+    vals = torch.stack([torch.ones_like(v), v, w], dim=1)
+    got = srk.segment_reduce_fused_cuda(vals, seg, S)
+    exp = srr.segment_reduce_fused(vals, seg, S)
+    scale = srr.segment_reduce_fused(vals.abs(), seg, S)
+    err = (got - exp).abs()
+    check(torch.equal(got[:, 0], exp[:, 0]), "fused count lane exact")
+    check(bool((err <= 1e-5 * scale).all()), "fused sums within 1e-5 sum|v|")
+    ms = cuda_ms(lambda: srk.segment_reduce_fused_cuda(vals, seg, S))
+    plain = cuda_ms(lambda: srr.segment_reduce_fused(vals, seg, S), reps=2)
+    seg64 = seg.long()
+    lib = cuda_ms(lambda: torch.zeros(S, 3, device=dev).index_add_(
+        0, seg64, vals))
+    L = vals.shape[1]
+    b_ms, b_by = bound(n * L * 4 + n * 4 + S * L * 4, n * L)
+    rows.append(dict(name="segment_reduce_fused", shape=f"N={n}, L={L}, S={S}",
+                     max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+
+    worst, ms_ops, plain_ops, lib_ops = 0.0, [], [], []
+    for op in ("min", "max"):
+        got = srk.segment_reduce_cuda(v, seg, S, op)
+        exp = srr.segment_reduce(v, seg, S, op)
+        check(torch.equal(got, exp), f"segment {op} exact")
+        ms_ops.append(cuda_ms(lambda: srk.segment_reduce_cuda(v, seg, S, op)))
+        plain_ops.append(cuda_ms(lambda: srr.segment_reduce(v, seg, S, op),
+                                 reps=2))
+        init = float("inf") if op == "min" else float("-inf")
+        lib_ops.append(cuda_ms(lambda: torch.full((S,), init, device=dev)
+                               .scatter_reduce_(0, seg64, v, "a" + op,
+                                                include_self=True)))
+    # NaN propagates through min and max as in the reference
+    nv = torch.tensor([1.0, float("nan"), 3.0, 2.0], device=dev)
+    ns = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    lo = srk.segment_reduce_cuda(nv, ns, 3, "min").cpu().numpy()
+    hi = srk.segment_reduce_cuda(nv, ns, 3, "max").cpu().numpy()
+    check(np.array_equal(lo, [np.nan, 2, np.inf], equal_nan=True), "min NaN")
+    check(np.array_equal(hi, [np.nan, 3, -np.inf], equal_nan=True), "max NaN")
+    b_ms, b_by = bound(n * 4 + n * 4 + S * 4, n)
+    rows.append(dict(name="segment_reduce", shape=f"N={n}, S={S}, op=min/max",
+                     max_abs_err=worst, ms=statistics.mean(ms_ops),
+                     plain_ms=statistics.mean(plain_ops), bound_ms=b_ms,
+                     bound_by=b_by, library_ms=statistics.mean(lib_ops)))
+    return rows
+
+
+SOURCES = {
+    "hash_partition": ("src/repro_torch/csrc/hash_partition.cu",
+                       "src/repro/kernels/hash_partition/kernel.py:75"),
+    "probe": ("src/repro_torch/csrc/probe.cu",
+              "src/repro/kernels/hash_join/kernel.py:70"),
+    "segment_reduce_fused": ("src/repro_torch/csrc/segment_reduce.cu",
+                             "src/repro/kernels/segment_reduce/kernel.py:111"),
+    "segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
+                       "src/repro/kernels/segment_reduce/kernel.py:80"),
+}
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    check(r.returncode == 0, "nvidia-smi reads the card")
+    return r.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one run of each of phases 3-5")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import HPTMTContext
+    from repro_torch.dataframe import DataFrame
+    from repro_torch.kernels import native
+
+    dev = torch.device("cuda")
+    card = card_line()
+    emit("card", nvidia_smi=card, torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    # 1. build
+    t0 = time.perf_counter()
+    native.library(verbose=True)
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc_seconds=native.build_seconds)
+
+    left, right, sets = make_data(args.seed)
+    oracle = make_oracle(left, right)
+
+    # 2. kernels vs plain
+    krows = kernel_phase(left, right, dev)
+    for r in krows:
+        emit("kernel", **r)
+
+    launches = Launches()
+    left_dev = {k: torch.from_numpy(v).to(dev) for k, v in left.items()}
+
+    # 3. main path, 1 shard
+    ctx1 = HPTMTContext(n_shards=1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    res1 = main_path(DataFrame, ctx1, left, right, 1.0)
+    counts3, ex3 = launches.read()
+    check(ex3 == 0, f"1 shard exchanges: {ex3}")
+    j1, g1 = check_main_path(res1, left_dev, oracle, "1 shard")
+    peak3 = torch.cuda.max_memory_allocated() / 2**30
+    del res1
+    runs3 = timed_runs(lambda: main_path(DataFrame, ctx1, left, right, 1.0))
+    if args.profile:
+        profile_run("main_1shard",
+                    lambda: main_path(DataFrame, ctx1, left, right, 1.0))
+    emit("main_1shard", launches=counts3, exchanges=ex3,
+         median_s=statistics.median(runs3), runs_s=runs3, peak_gib=peak3)
+
+    # 4. the same data on 4 virtual shards
+    ctx4 = HPTMTContext(n_shards=4, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    res4 = main_path(DataFrame, ctx4, left, right, 2.0)
+    counts4, ex4 = launches.read()
+    check(ex4 == 3, f"4 shard exchanges: {ex4} (join 2, groupby g 1, k 0)")
+    check(counts4["hash_partition"] > 0, "4 shards launch hash_partition")
+    j4, g4 = check_main_path(res4, left_dev, oracle, "4 shards")
+    check(torch.equal(canonical(j1, sorted(j1)), canonical(j4, sorted(j4))),
+          "4-shard join rows equal the 1-shard rows")
+    for key in ("g", "v_count", "v_min", "v_max"):
+        check(np.array_equal(g1[key], g4[key]), f"4-shard groupby {key}")
+    peak4 = torch.cuda.max_memory_allocated() / 2**30
+    del res4, j1, j4
+    runs4 = timed_runs(lambda: main_path(DataFrame, ctx4, left, right, 2.0))
+    if args.profile:
+        profile_run("main_4shards",
+                    lambda: main_path(DataFrame, ctx4, left, right, 2.0))
+    emit("main_4shards", launches=counts4, exchanges=ex4,
+         median_s=statistics.median(runs4), runs_s=runs4, peak_gib=peak4)
+
+    # 5. set ops, 4 shards
+    launches.reset()
+    res5 = set_ops(DataFrame, ctx4, sets)
+    counts5, ex5 = launches.read()
+    u = np.sort(res5["union"].to_numpy()["k"])
+    check(np.array_equal(u, np.union1d(sets["a"], sets["b"])), "union")
+    d = np.sort(res5["difference"].to_numpy()["k"])
+    keep = sets["a"][~np.isin(sets["a"], sets["b"])]
+    check(np.array_equal(d, np.sort(keep)), "difference rows")
+    check(np.array_equal(np.unique(d), np.setdiff1d(sets["a"], sets["b"])),
+          "difference vs setdiff1d")
+    del res5
+    runs5 = timed_runs(lambda: set_ops(DataFrame, ctx4, sets))
+    if args.profile:
+        profile_run("setops_4shards", lambda: set_ops(DataFrame, ctx4, sets))
+    emit("setops_4shards", launches=counts5, exchanges=ex5,
+         median_s=statistics.median(runs5), runs_s=runs5,
+         union_rows=int(u.shape[0]), difference_rows=int(d.shape[0]))
+
+    # 6. summary
+    kernels = []
+    for r in krows:
+        name = r["name"]
+        check(launches.total[name] > 0, f"main path launched {name}")
+        src, replaces = SOURCES[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": launches.total[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,368 @@
+"""Fused single-collective row exchange (shuffle hot path, Fig 2) — hash half.
+
+Every distributed table operator (join, groupby, set ops) reduces to the
+shuffle primitive: re-distributing rows so related keys land on the same
+shard (paper §IV-B-1).  The port keeps the reference's three
+optimisations (reference DESIGN.md §3):
+
+  1. **Packed exchange** — every column is bit-cast to uint32 lanes and
+     packed into one ``(n_shards * bucket, row_width)`` buffer per sender,
+     with the per-destination send counts in a fused metadata row, so each
+     shuffle is exactly ONE call of the exchange choke point
+     (``array_ops.all_to_all``).
+  2. **Sort-free bucketing** — destination slots come from a counting-sort
+     scatter (per-destination prefix ranks plus the histogram the
+     ``hash_partition`` kernel produces); compaction is a cumsum scatter.
+  3. **Hash carrying** — the row hashes ``(h1, h2)`` computed for the
+     destinations travel as hidden columns (:data:`H1_NAME` /
+     :data:`H2_NAME`), so join and set-op kernels never rehash.
+
+Shards are virtual (``core/context.py``): a function that moves rows
+between shards takes one entry per shard and runs each shard's local
+phase in a loop around the one collective.  A single-entry call is the
+reference's ``axis=None`` case — no exchange, the local buckets are the
+result.
+
+uint32 lanes are held as int32 tensors with the same bits (``core/table.py``).
+Overflow is counted and the excess rows dropped, never corrupted.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .array_ops import all_to_all
+
+Cols = Dict[str, torch.Tensor]
+
+#: Reserved hidden-column names for carried row hashes.
+H1_NAME = "_h1"
+H2_NAME = "_h2"
+#: Reserved for carried order lanes (used by the reference's spill engine).
+LANES_NAME = "_lanes"
+
+
+# ===========================================================================
+# bit-exact uint32 packing
+# ===========================================================================
+@dataclasses.dataclass(frozen=True)
+class ColSpec:
+    """Static layout of one column inside the packed row."""
+    name: str
+    dtype: torch.dtype
+    trailing: Tuple[int, ...]
+    start: int
+    lanes: int
+
+
+def _col_to_u32(col: torch.Tensor) -> torch.Tensor:
+    """Bit-exact reversible view of a column as ``(cap, lanes)`` uint32
+    lanes (int32 bits)."""
+    cap = col.shape[0]
+    x = col.reshape(cap, -1).contiguous()
+    size = x.dtype.itemsize
+    if x.dtype == torch.bool:
+        u = x.to(torch.int32)
+    elif size == 4:
+        u = x.view(torch.int32)
+    elif size == 8:
+        u = x.view(torch.int32)  # (cap, 2L), low word first
+    elif size == 2:
+        u = x.view(torch.int16).to(torch.int32) & 0xFFFF
+    elif size == 1:
+        u = x.view(torch.uint8).to(torch.int32)
+    else:
+        raise TypeError(f"unsupported column dtype {col.dtype}")
+    return u.reshape(cap, -1)
+
+
+def _u32_to_col(u: torch.Tensor, dtype: torch.dtype,
+                trailing: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of :func:`_col_to_u32`."""
+    cap = u.shape[0]
+    u = u.contiguous()
+    if dtype == torch.bool:
+        x = u != 0
+    elif dtype.itemsize == 4:
+        x = u.view(dtype)
+    elif dtype.itemsize == 8:
+        x = u.reshape(cap, -1, 2).contiguous().view(dtype)
+    elif dtype.itemsize == 2:
+        x = u.to(torch.int16).view(dtype)
+    else:
+        x = u.to(torch.uint8).view(dtype)
+    return x.reshape((cap,) + tuple(trailing))
+
+
+def pack_columns(cols: Cols) -> Tuple[torch.Tensor, Tuple[ColSpec, ...]]:
+    """Pack all columns into one ``(cap, row_width)`` lane buffer."""
+    parts, specs, start = [], [], 0
+    for name in sorted(cols):
+        u = _col_to_u32(cols[name])
+        specs.append(ColSpec(name, cols[name].dtype,
+                             tuple(cols[name].shape[1:]), start, u.shape[1]))
+        start += u.shape[1]
+        parts.append(u)
+    return torch.cat(parts, dim=1), tuple(specs)
+
+
+def unpack_columns(buf: torch.Tensor, specs: Sequence[ColSpec]) -> Cols:
+    """Recover original dtypes/shapes from a packed lane buffer."""
+    return {s.name: _u32_to_col(buf[:, s.start:s.start + s.lanes],
+                                s.dtype, s.trailing) for s in specs}
+
+
+# ===========================================================================
+# sort-free primitives
+# ===========================================================================
+def dest_ranks(dest: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Stable within-destination rank of each row (counting sort, no sort).
+
+    ``rank[i]`` = number of earlier rows with the same destination.  Rows
+    with ``dest >= n_parts`` (invalid) get rank 0 — callers mask them.
+    One flat prefix sum per destination: O(n) memory, and each scan is a
+    single device-wide scan (a prefix sum over a ``(parts, n)`` one-hot
+    gives only ``parts`` rows of parallelism on CUDA).
+    """
+    rank = torch.zeros(dest.shape, dtype=torch.int32, device=dest.device)
+    for p in range(n_parts):
+        hit = dest == p
+        rank = torch.where(hit, torch.cumsum(hit, 0, dtype=torch.int32) - 1,
+                           rank)
+    return rank
+
+
+def _scatter_rows(src: torch.Tensor, slot: torch.Tensor,
+                  size: int) -> torch.Tensor:
+    """``zeros(size, ...)`` with ``out[slot[i]] = src[i]``; slots outside
+    ``[0, size)`` are dropped (the reference's ``mode="drop"``).  Dropped
+    rows are filtered out first rather than written to a spare row: on the
+    card, millions of padding rows storing to one row contend."""
+    out = torch.zeros((size,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    ok = (slot >= 0) & (slot < size)
+    out[slot[ok].to(torch.int64)] = src[ok]
+    return out
+
+
+def compact_rows(cols: Cols, keep: torch.Tensor, out_capacity: int
+                 ) -> Tuple[Cols, torch.Tensor, torch.Tensor]:
+    """Move kept rows to the front (stable) via cumsum scatter; no sort.
+
+    Returns ``(columns, new_count, n_truncated)`` — rows past
+    ``out_capacity`` are dropped and counted.  Padding rows are zero-filled.
+    """
+    total = keep.sum(dtype=torch.int32)
+    pos = torch.cumsum(keep, dim=0, dtype=torch.int32) - 1
+    slot = torch.where(keep, pos, out_capacity)
+    out = {k: _scatter_rows(v, slot, out_capacity) for k, v in cols.items()}
+    new_count = torch.clamp(total, max=out_capacity)
+    return out, new_count, total - new_count
+
+
+def _histogram(dest: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Per-destination count of valid rows (``dest < n_parts``)."""
+    d = torch.clamp(dest.to(torch.int64), 0, n_parts)
+    hist = torch.zeros(n_parts + 1, dtype=torch.int32, device=dest.device)
+    hist.scatter_add_(0, d, torch.ones_like(d, dtype=torch.int32))
+    return hist[:n_parts]
+
+
+# ===========================================================================
+# the packed single-collective exchange
+# ===========================================================================
+def exchange_rows(cols: Sequence[Cols], dest: Sequence[torch.Tensor],
+                  n_shards: int, bucket: int,
+                  hist: Optional[Sequence[torch.Tensor]] = None):
+    """Bucket each shard's rows by destination and exchange them in ONE
+    all-to-all.
+
+    ``cols[s]``/``dest[s]``/``hist[s]`` are shard ``s``'s columns, row
+    destinations (``>= n_shards`` for invalid rows) and per-destination
+    valid-row histogram (recomputed when not supplied).  With a single
+    entry nothing is exchanged: the local buckets come back.
+
+    Frame layout: per destination, ``bucket`` packed data rows followed by
+    one metadata row whose lane 0 holds the send count — so counts ride the
+    same collective as the data.
+
+    Returns ``(received_cols, received_valid_mask, n_overflowed_send)``,
+    one entry per shard.
+    """
+    n_local = len(cols)
+    if n_local not in (1, n_shards):
+        raise ValueError(f"{n_local} shard inputs for {n_shards} shards")
+    frames, sent_all, overflow, specs = [], [], [], None
+    for s in range(n_local):
+        d = dest[s]
+        h = hist[s] if hist is not None else _histogram(d, n_shards)
+        packed, specs = pack_columns(cols[s])
+        width = packed.shape[1]
+        rank = dest_ranks(d, n_shards)
+        ok = (d < n_shards) & (rank < bucket)
+        slot = torch.where(ok, d.to(torch.int64) * bucket + rank,
+                           n_shards * bucket)
+        buf = _scatter_rows(packed, slot, n_shards * bucket)
+        sent = torch.clamp(h, max=bucket)
+        overflow.append((h - sent).sum(dtype=torch.int32))
+        sent_all.append(sent)
+        meta = torch.zeros((n_shards, 1, width), dtype=torch.int32,
+                           device=buf.device)
+        meta[:, 0, 0] = sent
+        frames.append(torch.cat([buf.reshape(n_shards, bucket, width), meta],
+                                dim=1))
+
+    if n_local > 1:
+        received = all_to_all(frames)
+        recv_cnt = [r[:, bucket, 0] for r in received]
+    else:
+        received, recv_cnt = frames, sent_all
+
+    out_cols, valid = [], []
+    for r, cnt in zip(received, recv_cnt):
+        buf = r[:, :bucket].reshape(n_shards * bucket, -1)
+        pos = torch.arange(n_shards * bucket, device=buf.device)
+        valid.append((pos % bucket) < cnt[pos // bucket])
+        out_cols.append(unpack_columns(buf, specs))
+    return out_cols, valid, overflow
+
+
+def hash_shuffle(cols: Sequence[Cols], counts: Sequence[torch.Tensor],
+                 key_names: Sequence[str], n_shards: int, bucket: int,
+                 out_capacity: int, *, carry_hashes: bool = False):
+    """Hash-partition + packed exchange + compaction, over all shards.
+
+    Destinations and the send histograms come from the ``hash_partition``
+    kernel (plain version on the CPU).  With ``carry_hashes`` the row
+    hashes travel as hidden :data:`H1_NAME` / :data:`H2_NAME` columns;
+    pop them with :func:`take_hashes`.
+
+    A completed call establishes the ``(key_names, n_shards)`` hash layout
+    operators record as ``DistTable.partitioning``.
+
+    Returns ``(columns, new_count, overflow)``, one entry per shard.
+    """
+    from ..kernels.hash_partition import ops as hpops  # lazy: no cycle
+
+    sends, dests, hists = [], [], []
+    for c, count in zip(cols, counts):
+        capacity = next(iter(c.values())).shape[0]
+        mask = torch.arange(capacity, device=count.device) < count
+        key_cols = [c[k] for k in key_names]
+        if carry_hashes:
+            check_no_reserved(c)
+            dest, hist, h1, h2 = hpops.hash_partition(
+                key_cols, n_shards, mask, return_hashes=True)
+            c = dict(c)
+            c[H1_NAME], c[H2_NAME] = h1, h2
+        else:
+            dest, hist = hpops.hash_partition(key_cols, n_shards, mask)
+        sends.append(c)
+        dests.append(dest)
+        hists.append(hist)
+    bufs, valid, ov_send = exchange_rows(sends, dests, n_shards, bucket,
+                                         hist=hists)
+    out, new_counts, overflow = [], [], []
+    for b, v, o in zip(bufs, valid, ov_send):
+        cols_s, n, ov_recv = compact_rows(b, v, out_capacity)
+        out.append(cols_s)
+        new_counts.append(n)
+        overflow.append(o + ov_recv)
+    return out, new_counts, overflow
+
+
+def key_compare_u32(cols: Cols, key_names: Sequence[str]) -> torch.Tensor:
+    """Bitwise key-comparison lanes, consistent with the hash identity.
+
+    The ``(N, L)`` lane matrix the hash-join / set-op kernels verify
+    candidates against: float keys narrow to float32 and compare by bit
+    pattern — the identity ``hash_columns`` uses, so NaN keys with equal
+    bits are equal and ``-0.0 != +0.0`` — while integer/bool keys compare
+    by their packed two's-complement lanes.
+    """
+    parts = []
+    for name in key_names:
+        col = cols[name]
+        if col.is_floating_point():
+            col = col.to(torch.float32).contiguous().view(torch.int32)
+        parts.append(_col_to_u32(col))
+    return torch.cat(parts, dim=1)
+
+
+def check_no_reserved(names: Sequence[str]) -> None:
+    """Reject user tables that use the reserved hidden-column names."""
+    clash = {H1_NAME, H2_NAME, LANES_NAME} & set(names)
+    if clash:
+        raise ValueError(
+            f"column names {sorted(clash)} are reserved for carried row "
+            f"hashes / order lanes (core/exchange.py); rename the column(s)")
+
+
+def take_hashes(cols: Cols, key_names: Sequence[str]
+                ) -> Tuple[Cols, torch.Tensor, torch.Tensor]:
+    """Pop carried ``(h1, h2)`` from a shuffled table, or compute them."""
+    from .table import hash_columns  # lazy: table does not import exchange
+
+    cols = dict(cols)
+    if H1_NAME in cols:
+        return cols, cols.pop(H1_NAME), cols.pop(H2_NAME)
+    h1, h2 = hash_columns([cols[k] for k in key_names])
+    return cols, h1, h2
+
+
+def strip_hidden(cols: Cols) -> Cols:
+    """Drop carried-hash columns before handing a table back to the user."""
+    return {k: v for k, v in cols.items()
+            if k not in (H1_NAME, H2_NAME, LANES_NAME)}
+
+
+# ===========================================================================
+# seed reference implementation (oracle for parity tests)
+# ===========================================================================
+def exchange_rows_reference(cols: Sequence[Cols],
+                            dest: Sequence[torch.Tensor], n_shards: int,
+                            bucket: int):
+    """The per-column argsort exchange, kept as a test oracle.
+
+    One all-to-all per column plus a count side-channel; bucketing via
+    stable ``argsort``.  Bit-for-bit equal *valid rows* to
+    :func:`exchange_rows` (padding differs).  Returns
+    ``(bufs, valid, overflow)``, one entry per shard.
+    """
+    n_local = len(cols)
+    sends, sent_all, overflow = [], [], []
+    for c, d in zip(cols, dest):
+        capacity = d.shape[0]
+        d = d.to(torch.int64)
+        order = torch.argsort(d, stable=True)
+        sdest = d[order]
+        first = torch.searchsorted(sdest, sdest, side="left")
+        rank = torch.arange(capacity, device=d.device) - first
+        ok = (sdest < n_shards) & (rank < bucket)
+        slot = torch.where(ok, sdest * bucket + rank, n_shards * bucket)
+        send_cnt = _histogram(d, n_shards)
+        sent = torch.clamp(send_cnt, max=bucket)
+        overflow.append((send_cnt - sent).sum(dtype=torch.int32))
+        sent_all.append(sent)
+        sends.append({k: _scatter_rows(v[order], slot, n_shards * bucket)
+                      for k, v in c.items()})
+
+    if n_local > 1:
+        recv_cnt = all_to_all(sent_all)
+        per_col = {k: all_to_all([s[k].reshape((n_shards, bucket)
+                                               + tuple(s[k].shape[1:]))
+                                  for s in sends])
+                   for k in sends[0]}
+        bufs = [{k: per_col[k][r].reshape((n_shards * bucket,)
+                                          + tuple(per_col[k][r].shape[2:]))
+                 for k in per_col} for r in range(n_local)]
+    else:
+        recv_cnt, bufs = sent_all, sends
+
+    valid = []
+    for cnt in recv_cnt:
+        pos = torch.arange(n_shards * bucket, device=cnt.device)
+        valid.append((pos % bucket) < cnt[pos // bucket])
+    return bufs, valid, overflow

@@ -1,0 +1,363 @@
+"""Columnar Table abstraction (paper §IV), on PyTorch tensors.
+
+An Arrow-style struct-of-arrays table with a static shape:
+
+  * every column is a fixed-dtype tensor of length ``capacity``;
+  * rows ``[0, num_rows)`` are valid and compacted to the front; rows beyond
+    are padding (their contents are ignored by all operators);
+  * heterogeneous dtypes across columns, homogeneous within a column.
+
+``Table`` is a single-shard (local) table; :class:`DistTable` is the
+row-partitioned form.  Its columns are ``(n_shards, capacity, ...)``
+blocks on one device — virtual shards as a leading dimension.
+
+Numeric inputs narrow the way the JAX package narrows them with 64-bit
+mode off (:func:`as_tensor`): int64 → int32, uint64 → uint32, float64 →
+float32.  Hashes, packing and output dtypes then agree with the reference.
+
+uint32 values (hash lanes, packed rows) are stored as ``int32`` tensors
+holding the same bits: PyTorch has few ``uint32`` kernels, and equality,
+``&``, ``|`` and ``^`` do not care about the sign.  Arithmetic on them
+widens to int64 first (:func:`u32`).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .context import DeviceLike, HPTMTContext, resolve_device
+
+Columns = Dict[str, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# hashing (order must match kernels/hash_partition and csrc/hash_partition.cu)
+# ---------------------------------------------------------------------------
+M32 = 0xFFFFFFFF
+_H1_INIT = 0x9E3779B9
+_H2_INIT = 0x85EBCA6B
+_MUL1 = 0xCC9E2D51
+_MUL2 = 0x1B873593
+_K2_XOR = 0xDEADBEEF
+
+#: numpy dtypes the JAX package narrows when 64-bit mode is off
+_NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
+           np.dtype(np.float64): np.float32,
+           np.dtype(np.complex128): np.complex64}
+_TORCH_NARROW = {torch.int64: torch.int32, torch.float64: torch.float32,
+                 torch.complex128: torch.complex64}
+
+
+def as_tensor(x, device: DeviceLike = None) -> torch.Tensor:
+    """Column → tensor on ``device``, narrowed like ``jnp.asarray``.
+
+    A tensor keeps its device when ``device`` is None; anything else goes
+    to :func:`resolve_device` (the card unless the caller says otherwise).
+    """
+    if isinstance(x, torch.Tensor):
+        t = x if device is None else x.to(resolve_device(device))
+        return t.to(_TORCH_NARROW.get(t.dtype, t.dtype))
+    a = np.asarray(x)
+    # copies only to narrow, to make contiguous, or to own read-only data
+    a = np.ascontiguousarray(a, dtype=_NARROW.get(a.dtype, a.dtype))
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(resolve_device(device))
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern → its uint32 value as int64."""
+    return x.to(torch.int64) & M32
+
+
+def i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 value held in int64 → the int32 tensor with the same bits."""
+    return torch.where(x > 0x7FFFFFFF, x - (1 << 32), x).to(torch.int32)
+
+
+def _as_u32(col: torch.Tensor) -> torch.Tensor:
+    """Bit-stable 32-bit view of a column for hashing (int32 bits)."""
+    if col.dtype == torch.bool:
+        return col.to(torch.int32)
+    if col.is_floating_point():
+        return col.to(torch.float32).contiguous().view(torch.int32)
+    if col.dtype == torch.uint32:
+        return col.view(torch.int32)
+    # sign-extends signed types and zero-extends unsigned ones: the bits
+    # of ``astype(uint32)``
+    return col.to(torch.int32)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``(a * c) mod 2^32`` for uint32 values in int64, never overflowing:
+    the constant is split into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & M32
+
+
+def _mix(h: torch.Tensor, k: torch.Tensor, mul: int) -> torch.Tensor:
+    k = _mul32(k, mul)
+    k = ((k << 15) | (k >> 17)) & M32
+    h = h ^ k
+    h = ((h << 13) | (h >> 19)) & M32
+    return (_mul32(h, 5) + 0xE6546B64) & M32
+
+
+def hash_lanes(keys: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The murmur chain over int32-bit key lanes; ``(h1, h2)`` as uint32
+    values in int64."""
+    n = keys[0].shape[0]
+    dev = keys[0].device
+    h1 = torch.full((n,), _H1_INIT, dtype=torch.int64, device=dev)
+    h2 = torch.full((n,), _H2_INIT, dtype=torch.int64, device=dev)
+    for lane in keys:
+        k = u32(lane)
+        h1 = _mix(h1, k, _MUL1)
+        h2 = _mix(h2, k ^ _K2_XOR, _MUL2)
+    return h1 ^ (h1 >> 16), h2 ^ (h2 >> 16)
+
+
+def hash_columns(cols: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two independent 32-bit hashes per row (≈64-bit identity), returned
+    as int32 tensors holding the uint32 bits."""
+    h1, h2 = hash_lanes([_as_u32(c) for c in cols])
+    return i32(h1), i32(h2)
+
+
+# ---------------------------------------------------------------------------
+# local Table
+# ---------------------------------------------------------------------------
+class Table:
+    """A local columnar table with static capacity and dynamic row count."""
+
+    def __init__(self, columns: Columns, num_rows):
+        if not columns:
+            raise ValueError("Table needs at least one column")
+        caps = {v.shape[0] for v in columns.values()}
+        if len(caps) != 1:
+            raise ValueError(f"column capacities differ: {caps}")
+        self.columns = dict(columns)
+        dev = next(iter(columns.values())).device
+        self.num_rows = torch.as_tensor(num_rows, dtype=torch.int32,
+                                        device=dev)
+
+    @classmethod
+    def from_arrays(cls, columns, num_rows=None,
+                    capacity: Optional[int] = None,
+                    device: DeviceLike = None) -> "Table":
+        cols = {k: as_tensor(v, device) for k, v in columns.items()}
+        n = next(iter(cols.values())).shape[0]
+        if num_rows is None:
+            num_rows = n
+        if capacity is not None and capacity != n:
+            if capacity < n:
+                raise ValueError("capacity smaller than provided rows")
+            cols = {k: _pad_axis0(v, capacity) for k, v in cols.items()}
+        return cls(cols, num_rows)
+
+    @property
+    def capacity(self) -> int:
+        return next(iter(self.columns.values())).shape[0]
+
+    @property
+    def column_names(self) -> Tuple[str, ...]:
+        return tuple(sorted(self.columns))
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """Materialize valid rows on host."""
+        k = int(self.num_rows)
+        return {name: col[:k].cpu().numpy()
+                for name, col in self.columns.items()}
+
+
+def _pad_axis0(x: torch.Tensor, capacity: int) -> torch.Tensor:
+    if x.shape[0] == capacity:
+        return x
+    out = torch.zeros((capacity,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[:x.shape[0]] = x
+    return out
+
+
+# ---------------------------------------------------------------------------
+# distributed Table
+# ---------------------------------------------------------------------------
+#: Partitioning metadata (reference DESIGN.md §4): ``(hash_keys, n_shards)``
+#: after a hash exchange on ``hash_keys``, or ``None`` when the layout is
+#: unknown.  (The reference's range form arrives with the ordered-analytics
+#: slice.)
+Partitioning = Optional[tuple]
+
+
+def partitioning_kind(part: Partitioning) -> Optional[str]:
+    """``"hash"`` or ``None`` for a metadata tuple."""
+    return None if part is None else "hash"
+
+
+def partitioning_keys(part: Partitioning) -> Tuple[str, ...]:
+    """The ordered key columns the layout evidence depends on (() if None)."""
+    return () if part is None else part[0]
+
+
+class DistTable:
+    """Row-partitioned table: ``n_shards`` blocks of ``capacity`` rows each.
+
+    ``columns[k]`` has shape ``(n_shards, capacity, ...)`` on one device;
+    ``counts`` has shape ``(n_shards,)`` giving each shard's valid-row
+    count.  Shard ``i``'s block is a plain :class:`Table`
+    (:meth:`shard_table`).
+
+    ``partitioning`` records how rows were assigned to shards:
+    ``(hash_keys, n_shards)`` after a hash exchange on ``hash_keys``, else
+    ``None``.  Operators skip a shuffle when equal keys are already
+    co-located.  Constructors that cannot prove a layout (``from_local``)
+    leave it ``None``.
+    """
+
+    def __init__(self, columns: Columns, counts,
+                 partitioning: Partitioning = None):
+        self.columns = dict(columns)
+        dev = next(iter(self.columns.values())).device
+        self.counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
+        self.partitioning = partitioning
+
+    # -- properties ----------------------------------------------------------
+    @property
+    def n_shards(self) -> int:
+        return self.counts.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return next(iter(self.columns.values())).shape[1]
+
+    @property
+    def column_names(self) -> Tuple[str, ...]:
+        return tuple(sorted(self.columns))
+
+    @property
+    def device(self) -> torch.device:
+        return self.counts.device
+
+    def num_rows(self) -> torch.Tensor:
+        return self.counts.sum()
+
+    # -- construction ----------------------------------------------------------
+    @classmethod
+    def from_local(cls, table: Table, ctx: HPTMTContext,
+                   capacity: Optional[int] = None) -> "DistTable":
+        """Block-partition a local table's valid rows across shards."""
+        p = ctx.n_shards
+        dev = ctx.device
+        n = table.num_rows.to(dev, torch.int64)
+        per = (n + p - 1) // p  # rows per shard (last may be short)
+        cap = capacity or -(-table.capacity // p)
+        # row r goes to shard r // per at slot r % per
+        idx = torch.arange(p * cap, dtype=torch.int64, device=dev)
+        shard, slot = idx // cap, idx % cap
+        src = shard * per + slot
+        valid = (slot < per) & (src < n)
+        src = torch.where(valid, src, 0)
+        cols = {}
+        for k, v in table.columns.items():
+            g = v.to(dev)[src]
+            m = valid.reshape((-1,) + (1,) * (g.dim() - 1))
+            cols[k] = torch.where(m, g, torch.zeros_like(g)).reshape(
+                (p, cap) + tuple(v.shape[1:]))
+        counts = n - torch.arange(p, dtype=torch.int64, device=dev) * per
+        counts = torch.minimum(torch.clamp(counts, min=0), per)
+        counts = torch.clamp(counts, max=cap).to(torch.int32)
+        return cls(cols, counts)
+
+    @classmethod
+    def from_shard_tables(cls, tables: Sequence[Table], ctx: HPTMTContext,
+                          partitioning: Partitioning = None) -> "DistTable":
+        """Assemble per-shard local tables into a DistTable.
+
+        The inverse of :meth:`shard_table`: ``tables[i]`` becomes shard
+        ``i``'s block (padded to the common capacity).  ``partitioning`` is
+        attached verbatim, so callers assert the layout evidence truthfully.
+        """
+        if len(tables) != ctx.n_shards:
+            raise ValueError(f"{len(tables)} shard tables for a "
+                             f"{ctx.n_shards}-shard context")
+        names = tables[0].column_names
+        for i, t in enumerate(tables[1:], 1):
+            if t.column_names != names:
+                raise ValueError(f"shard {i} columns {t.column_names} != "
+                                 f"shard 0 columns {names}")
+        cap = max(t.capacity for t in tables)
+        cols = {k: torch.stack([_pad_axis0(t.columns[k].to(ctx.device), cap)
+                                for t in tables])
+                for k in names}
+        counts = torch.stack([torch.clamp(t.num_rows.to(ctx.device), max=cap)
+                              for t in tables])
+        return cls(cols, counts, partitioning)
+
+    @classmethod
+    def from_numpy_blocks(cls, columns: Dict[str, np.ndarray], counts,
+                          partitioning: Partitioning = None,
+                          device: DeviceLike = None) -> "DistTable":
+        """Adopt a reference ``DistTable``'s arrays, given as numpy.
+
+        ``columns[k]`` is the global ``(n_shards * capacity, ...)`` array;
+        ``counts`` the per-shard row counts.  The partitioning metadata is
+        taken verbatim, so a state that already proves co-location carries
+        over.
+        """
+        counts = np.asarray(counts, np.int32)
+        p = counts.shape[0]
+        dev = resolve_device(device)
+        cols = {}
+        for k, v in columns.items():
+            a = np.asarray(v)
+            cols[k] = as_tensor(a.reshape((p, a.shape[0] // p) + a.shape[1:]),
+                                dev)
+        return cls(cols, torch.tensor(counts, device=dev), partitioning)
+
+    def to_numpy_blocks(self) -> Tuple[Dict[str, np.ndarray], np.ndarray,
+                                       Partitioning]:
+        """Inverse of :meth:`from_numpy_blocks`: global column arrays,
+        counts and partitioning."""
+        p, c = self.n_shards, self.capacity
+        cols = {k: v.reshape((p * c,) + tuple(v.shape[2:])).cpu().numpy()
+                for k, v in self.columns.items()}
+        return cols, self.counts.cpu().numpy(), self.partitioning
+
+    # -- conversion ----------------------------------------------------------
+    def shard_table(self, i: int) -> Table:
+        return Table({k: v[i] for k, v in self.columns.items()},
+                     self.counts[i])
+
+    def shards(self) -> Tuple[list, list]:
+        """Per-shard ``(columns, count)`` lists — the operators' loop form."""
+        cols = [{k: v[i] for k, v in self.columns.items()}
+                for i in range(self.n_shards)]
+        return cols, list(self.counts.unbind(0))
+
+    @classmethod
+    def from_shards(cls, cols: Sequence[Columns], counts: Sequence,
+                    partitioning: Partitioning = None) -> "DistTable":
+        """Stack per-shard outputs of equal capacity (see :meth:`shards`)."""
+        stacked = {k: torch.stack([c[k] for c in cols]) for k in cols[0]}
+        return cls(stacked, torch.stack([torch.as_tensor(n).reshape(())
+                                         for n in counts]), partitioning)
+
+    def valid_rows(self) -> Columns:
+        """Every shard's valid rows, concatenated in shard order, on the
+        table's device."""
+        counts = self.counts.tolist()
+        return {name: torch.cat([v[i, :counts[i]]
+                                 for i in range(self.n_shards)])
+                for name, v in self.columns.items()}
+
+    def to_local(self) -> Table:
+        """Gather all shards into one compacted local table."""
+        cols = self.valid_rows()
+        return Table.from_arrays(cols, num_rows=int(self.counts.sum()),
+                                 capacity=self.capacity * self.n_shards)
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        return {k: v.cpu().numpy() for k, v in self.valid_rows().items()}

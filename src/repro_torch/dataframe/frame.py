@@ -1,0 +1,216 @@
+"""Cylon-style eager DataFrame API over the HPTMT table operators (PyTorch).
+
+Global-view programming (paper §V-B): the user manipulates one logical
+DataFrame; operators run over the context's shards on its device (the
+card, unless the context says ``device="cpu"``).  ``to_numpy()`` /
+``to_torch()`` are the bridges to array code (paper Figs 13/17 interop).
+
+This slice of the port carries the hash surface: construction, select,
+project, join, groupby, hash repartition, the set operators and scalar
+aggregates.  The out-of-core path (``spill=``) arrives later; only
+``spill=False`` is accepted.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import table_ops
+from ..core.context import HPTMTContext
+from ..core.report import OverflowError, OverflowReport
+from ..core.table import DistTable, Table, as_tensor, partitioning_kind
+
+
+def _publish_report(report: OverflowReport) -> OverflowReport:
+    """Hand a lineage report on to telemetry — a no-op until the port has
+    a telemetry collector."""
+    return report
+
+
+def _spill_mode(spill: object) -> object:
+    """Only the in-memory path is ported: ``spill`` must be False."""
+    if spill is not False:
+        raise NotImplementedError(
+            f"spill={spill!r}: the out-of-core path is not ported yet; "
+            f"only spill=False (in-memory, overflow raises) is supported")
+    return spill
+
+
+class DataFrame:
+    """Every operator's overflow raises :class:`OverflowError`; the
+    lineage's :attr:`overflow_report` is the exactness certificate."""
+
+    def __init__(self, table: DistTable, ctx: HPTMTContext,
+                 report: Optional[OverflowReport] = None):
+        self._t = table
+        self._ctx = ctx
+        self._report = report if report is not None else OverflowReport()
+
+    @property
+    def overflow_report(self) -> OverflowReport:
+        """Unified overflow accounting across this frame's lineage."""
+        return self._report
+
+    # -- construction ----------------------------------------------------
+    @classmethod
+    def from_dict(cls, data: Dict[str, np.ndarray], ctx: HPTMTContext,
+                  capacity: Optional[int] = None,
+                  bucket_factor: float = 1.0) -> "DataFrame":
+        """Build a DataFrame, block-partitioned over the context's shards.
+
+        Columns narrow as the JAX package's do (int64 → int32, float64 →
+        float32) and land on the context's device.  ``bucket_factor``
+        over-allocates each shard's capacity beyond ``capacity`` (or the
+        exact ``ceil(rows / n_shards)`` default) so that a *later* shuffle
+        has head-room for hash skew.  A ``capacity``/``bucket_factor`` too
+        small to hold the input rows is rejected here.
+        """
+        lengths = {k: np.shape(v)[0] if np.ndim(v) else 0
+                   for k, v in data.items()}
+        if len(set(lengths.values())) > 1:
+            common = max(set(lengths.values()),
+                         key=lambda n: sum(v == n for v in lengths.values()))
+            ragged = sorted(f"{k} has {n} rows" for k, n in lengths.items()
+                            if n != common)
+            raise ValueError(
+                f"ragged column lengths: {ragged} vs {common} rows in the "
+                f"other column(s) — every column must have the same length")
+        cols = {k: as_tensor(v, ctx.device) for k, v in data.items()}
+        t = Table.from_arrays(cols)
+        per = math.ceil(
+            (capacity or -(-t.capacity // ctx.n_shards)) * bucket_factor)
+        if per * ctx.n_shards < t.capacity:
+            raise ValueError(
+                f"per-shard capacity {per} x {ctx.n_shards} shards cannot "
+                f"hold {t.capacity} rows — raise capacity or bucket_factor")
+        return cls(DistTable.from_local(t, ctx, capacity=per), ctx)
+
+    # -- metadata ------------------------------------------------------------
+    @property
+    def columns(self) -> Tuple[str, ...]:
+        return self._t.column_names
+
+    def __len__(self) -> int:
+        return int(self._t.num_rows())
+
+    @property
+    def table(self) -> DistTable:
+        return self._t
+
+    @property
+    def partitioning(self):
+        """The layout evidence tuple: ``(hash_keys, n_shards)`` after a
+        hash exchange, else None.  Operators on matching keys skip their
+        shuffle."""
+        return self._t.partitioning
+
+    @property
+    def partitioning_kind(self):
+        """``"hash"`` or ``None`` — the layout kind."""
+        return partitioning_kind(self._t.partitioning)
+
+    # -- relational operators (eager) ------------------------------------------
+    def select(self, predicate: Callable) -> "DataFrame":
+        return self._child(table_ops.select(self._t, predicate,
+                                            ctx=self._ctx))
+
+    def project(self, cols: Sequence[str]) -> "DataFrame":
+        return self._child(table_ops.project(self._t, cols, ctx=self._ctx))
+
+    def join(self, other: "DataFrame", on: Sequence[str], how: str = "inner",
+             *, method: str = "auto", max_matches: int = 1,
+             spill: object = False, **kw) -> "DataFrame":
+        """Equi-join on ``on``; ``how`` is inner/left/right/outer.
+
+        ``max_matches`` bounds the fan-out per left row; matches beyond it
+        count as overflow and raise here.
+        """
+        _spill_mode(spill)
+        out, ov = table_ops.join(self._t, other._t, on, ctx=self._ctx,
+                                 how=how, method=method,
+                                 max_matches=max_matches, **kw)
+        self._check(ov, "join")
+        return self._child(out, other)
+
+    def groupby(self, keys: Sequence[str],
+                aggs: Sequence[Tuple[str, str]], *,
+                spill: object = False, **kw) -> "DataFrame":
+        """Hash-aggregate ``aggs`` per distinct ``keys`` combination."""
+        _spill_mode(spill)
+        out, ov = table_ops.groupby_aggregate(self._t, keys, aggs,
+                                              ctx=self._ctx, **kw)
+        self._check(ov, "groupby")
+        return self._child(out)
+
+    def repartition(self, keys: Sequence[str], mode: str = "hash",
+                    **kw) -> "DataFrame":
+        """Re-distribute rows so equal ``keys`` share a shard (Fig 2).
+
+        The result records its layout (see :attr:`partitioning`), so
+        chained operators on the same keys elide their shuffles.  A no-op
+        when the layout already holds.  ``mode="range"`` (the sample-sort
+        exchange) arrives with the ordered-analytics slice.
+        """
+        if mode == "range":
+            raise NotImplementedError(
+                "repartition(mode='range') is not ported yet: it arrives "
+                "with the ordered-analytics slice of the PyTorch port")
+        if mode != "hash":
+            raise ValueError(f"unknown repartition mode={mode!r}; "
+                             f"expected 'hash' or 'range'")
+        keys = (keys,) if isinstance(keys, str) else tuple(keys)
+        missing = [k for k in keys if k not in self.columns]
+        if missing:
+            raise ValueError(f"keys= names unknown column(s) {missing}; "
+                             f"table has {sorted(self.columns)}")
+        out, ov = table_ops.shuffle(self._t, keys, ctx=self._ctx, **kw)
+        self._check(ov, "shuffle")
+        return self._child(out)
+
+    def union(self, other: "DataFrame", **kw) -> "DataFrame":
+        out, ov = table_ops.union(self._t, other._t, ctx=self._ctx, **kw)
+        self._check(ov, "union")
+        return self._child(out, other)
+
+    def difference(self, other: "DataFrame", **kw) -> "DataFrame":
+        out, ov = table_ops.difference(self._t, other._t, ctx=self._ctx, **kw)
+        self._check(ov, "difference")
+        return self._child(out, other)
+
+    def intersect(self, other: "DataFrame", **kw) -> "DataFrame":
+        out, ov = table_ops.intersect(self._t, other._t, ctx=self._ctx, **kw)
+        self._check(ov, "intersect")
+        return self._child(out, other)
+
+    def agg(self, column: str, op: str):
+        return float(table_ops.aggregate(self._t, column, op, ctx=self._ctx))
+
+    # -- interop bridges ----------------------------------------------------
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        return self._t.to_numpy()
+
+    def to_torch(self, columns: Optional[Sequence[str]] = None
+                 ) -> torch.Tensor:
+        """Stack numeric columns into a dense ``(rows, cols)`` float32
+        matrix on the frame's device."""
+        rows = self._t.valid_rows()
+        names = columns or self._t.column_names
+        return torch.stack([rows[c].to(torch.float32) for c in names], dim=1)
+
+    # -- overflow plumbing ------------------------------------------------
+    def _child(self, out: DistTable, *others: "DataFrame") -> "DataFrame":
+        """Wrap an operator result, carrying the lineage's overflow report."""
+        rep = OverflowReport().merge(self._report)
+        for o in others:
+            rep.merge(o._report)
+        return DataFrame(out, self._ctx, _publish_report(rep))
+
+    @staticmethod
+    def _check(overflow, op: str) -> None:
+        if int(overflow) != 0:
+            raise OverflowError(
+                f"{op}: {int(overflow)} rows overflowed static capacity — "
+                "re-run with a larger out_capacity/bucket_factor")

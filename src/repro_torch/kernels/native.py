@@ -1,0 +1,179 @@
+"""Build and load the hand-written CUDA kernels (``src/repro_torch/csrc``).
+
+Every ``csrc/*.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into an
+object file — one ``nvcc`` process per source, all started together — and
+the objects link into one shared library with a plain C interface, loaded
+with ``ctypes``.  The build happens at first use and is keyed by a hash
+of the sources and flags, so a fresh checkout builds once and later calls
+reuse the library.  Nothing here runs at import time: this module imports
+on machines with no CUDA toolkit, where no kernel is ever launched.
+
+Conventions of the C entry points: every pointer and the stream are
+``c_void_p``, sizes are ``c_int64``, small integers ``c_int``, and each
+returns ``cudaGetLastError()`` so the wrapper can raise on a refused
+launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parent.parent / "build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+P = ctypes.c_void_p
+I64 = ctypes.c_int64
+INT = ctypes.c_int
+
+#: argtypes of every C entry point (each returns ``cudaError_t`` as int)
+SIGNATURES = {
+    # keys, n, k, valid, n_parts, dest, hist, h1, h2, stream
+    "hptmt_hash_partition": [P, I64, INT, P, INT, P, P, P, P, P],
+    # table_row, slot_h2, slot_keys, slots, lanes, ph1, ph2, pkeys,
+    # pvalid, n, max_matches, max_probes, cnt, rimat, exhausted, stream
+    "hptmt_probe": [P, P, P, I64, INT, P, P, P, P, I64, INT, INT, P, P, P,
+                    P],
+    # values, seg, n, lanes, num_segments, out, stream
+    "hptmt_segment_sum_fused": [P, P, I64, INT, I64, P, P],
+    # values, seg, n, num_segments, op (0 sum, 1 min, 2 max), out, stream
+    "hptmt_segment_reduce": [P, P, I64, I64, INT, P, P],
+}
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run(procs, verbose: bool) -> None:
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        if verbose and out:
+            print(f"[nvcc {src.name}]\n{out}", flush=True)
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if the library for these sources is missing.
+
+    ``verbose`` prints what ``ptxas -v`` reports for each kernel
+    (registers, shared memory, spills).
+    """
+    global build_seconds
+    lib = BUILD / f"libhptmt_{_digest()}.so"
+    if lib.exists():
+        build_seconds = 0.0
+        return lib
+    t0 = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        extra = ["-Xptxas", "-v"] if verbose else []
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *ARCH, *FLAGS, *extra, "-I", str(CSRC), "-c",
+                   str(src), "-o", str(obj)]
+            procs.append((src, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        _run(procs, verbose)
+        objs = [str(Path(tmp) / (s.stem + ".o")) for s in _sources()]
+        part = Path(tmp) / lib.name
+        link = subprocess.Popen([nvcc, *ARCH, "-shared", "-o", str(part),
+                                 *objs], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        _run([(part, link)], verbose)
+        os.replace(part, lib)  # atomic: a concurrent build never sees half
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def library(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build(verbose)))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.hptmt_error_string.argtypes = [ctypes.c_int]
+            lib.hptmt_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().hptmt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """Dispatch rule of every ``ops.py``: True for a CUDA tensor (launch
+    the kernel), False for a CPU tensor (the plain version); any other
+    device raises — nothing falls back from one to the other."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the raw handle."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """Validate one kernel argument: CUDA, dtype, device; contiguous copy."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    return t.contiguous()

@@ -1,0 +1,93 @@
+"""Plain PyTorch version of the segment reductions (GroupBy hot loop).
+
+Semantics of ``jax.ops.segment_sum/min/max``: ids outside
+``[0, num_segments)`` are dropped, empty segments hold the identity
+(0 / +inf / -inf), and a segment holding a NaN reduces to NaN under
+min and max.
+
+The plain version sorts rows by segment id (stable) and reads each
+segment as a contiguous run:
+
+  * sums are differences of a float64 prefix sum over the finite values —
+    exact to far below float32 rounding — with NaN and ±inf entries counted
+    separately so they poison only their own segment;
+  * min/max sort by value within the segment (NaN last): the run's first
+    element is the min and its last the max, and a NaN last element means
+    the segment holds a NaN.
+
+It deliberately uses no scatter-reduction (``index_add_``,
+``scatter_reduce``): those are the library yardstick the kernels are timed
+against, not part of the port.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+_INITS = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+
+
+def _runs(seg: torch.Tensor, num_segments: int, values: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """In-range rows ordered by segment (stably, after any prior order of
+    ``values``'s rows), and each segment's ``[start, end)`` in that order.
+
+    Returns ``(values_sorted, seg_sorted, start, end)``.
+    """
+    keep = (seg >= 0) & (seg < num_segments)
+    v, s = values[keep], seg[keep].to(torch.int64)
+    order = torch.argsort(s, stable=True)
+    v, s = v[order], s[order]
+    ids = torch.arange(num_segments, device=seg.device)
+    return (v, s, torch.searchsorted(s, ids),
+            torch.searchsorted(s, ids, right=True))
+
+
+def segment_reduce_fused(values: torch.Tensor, segment_ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """Sum-reduce ``(N, L)`` float32 values by segment → ``(S, L)``."""
+    v, _, start, end = _runs(segment_ids, num_segments,
+                             values.to(torch.float64))
+
+    def run_sums(x):
+        # prefix sums along the innermost dimension: a CUDA scan along the
+        # outer dimension of a narrow (n, L) tensor is nearly serial
+        cs = torch.cumsum(x.t().contiguous(), dim=1)
+        cs = torch.cat([torch.zeros_like(cs[:, :1]), cs], dim=1)
+        return (cs[:, end] - cs[:, start]).t()
+
+    finite = torch.isfinite(v)
+    total = run_sums(torch.where(finite, v, 0.0))
+    nan = run_sums(torch.isnan(v).to(torch.float64)) > 0
+    pinf = run_sums((v == float("inf")).to(torch.float64)) > 0
+    ninf = run_sums((v == float("-inf")).to(torch.float64)) > 0
+    total = torch.where(pinf, float("inf"), total)
+    total = torch.where(ninf, float("-inf"), total)
+    total = torch.where(nan | (pinf & ninf), float("nan"), total)
+    return total.to(torch.float32)
+
+
+def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int, op: str = "sum") -> torch.Tensor:
+    """One-lane segment ``sum``/``min``/``max`` → ``(num_segments,)``."""
+    if op == "sum":
+        return segment_reduce_fused(values[:, None], segment_ids,
+                                    num_segments)[:, 0]
+    if op not in ("min", "max"):
+        raise ValueError(f"unknown op {op!r}")
+    values = values.to(torch.float32)
+    # sort by value first (NaN last); the stable sort by segment in _runs
+    # keeps that order inside each run
+    by_value = torch.argsort(values, stable=True)
+    v, _, start, end = _runs(segment_ids[by_value], num_segments,
+                             values[by_value])
+    out = torch.full((num_segments,), _INITS[op], dtype=torch.float32,
+                     device=values.device)
+    if v.numel() == 0:
+        return out
+    nonempty = end > start
+    first = v[torch.clamp(start, max=v.numel() - 1)]
+    last = v[torch.clamp(end - 1, min=0)]
+    got = torch.where(torch.isnan(last), last, first) if op == "min" else last
+    return torch.where(nonempty, got, out)

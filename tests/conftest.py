@@ -10,6 +10,12 @@ if SRC not in sys.path:
     sys.path.insert(0, os.path.abspath(SRC))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a hand-written CUDA kernel on the card; "
+        "skips where no CUDA device is available")
+
+
 @pytest.fixture(scope="session")
 def rng():
     import jax

@@ -1,0 +1,106 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one (marker
+``cuda``).  Run them on a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+The first test builds the kernels (``nvcc``, ``sm_90a``) and prints what
+``ptxas -v`` reports.  Shapes are small; ``chip_smoke.py`` holds the
+kernels at the main path's full shapes.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.table import as_tensor, hash_columns  # noqa: E402
+from repro_torch.kernels import native  # noqa: E402
+from repro_torch.kernels.hash_join import kernel as hjk  # noqa: E402
+from repro_torch.kernels.hash_join import ref as hjr  # noqa: E402
+from repro_torch.kernels.hash_partition import kernel as hpk  # noqa: E402
+from repro_torch.kernels.hash_partition import ref as hpr  # noqa: E402
+from repro_torch.kernels.segment_reduce import kernel as srk  # noqa: E402
+from repro_torch.kernels.segment_reduce import ref as srr  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+RNG = np.random.default_rng(29)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    native.library(verbose=True)
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n_parts,n_keys", [(1, 1), (4, 1), (16, 3), (1000, 2)])
+def test_hash_partition_kernel_bit_exact(dev, n_parts, n_keys):
+    n = 100_003
+    keys = torch.from_numpy(RNG.integers(-2**31, 2**31 - 1, (n, n_keys))
+                            .astype(np.int32)).to(dev)
+    valid = torch.from_numpy(RNG.random(n) < 0.9).to(dev)
+    got = hpk.hash_partition_cuda(keys, valid, n_parts, return_hashes=True)
+    exp = hpr.hash_partition_lanes(keys, valid, n_parts, return_hashes=True)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    d, h = hpk.hash_partition_cuda(keys, valid, n_parts)
+    assert torch.equal(d, exp[0]) and torch.equal(h, exp[1])
+
+
+@pytest.mark.parametrize("max_matches,max_probes", [(1, 64), (8, 64), (4, 3)])
+def test_probe_kernel_bit_exact(dev, max_matches, max_probes):
+    bk = as_tensor(RNG.integers(0, 5000, 20_000).astype(np.int32), dev)
+    pk = as_tensor(RNG.integers(0, 6000, 50_000).astype(np.int32), dev)
+    bh1, bh2 = hash_columns([bk])
+    ph1, ph2 = hash_columns([pk])
+    bvalid = torch.ones_like(bk, dtype=torch.bool)
+    pvalid = torch.from_numpy(RNG.random(50_000) < 0.95).to(dev)
+    slots = 1 << 17
+    table, _ = hjr.build_table(bh1, bh2, bvalid, slots, max_probes)
+    sh2, skeys = hjr.slot_payload(table, bh2, bk[:, None])
+    args = (table, sh2, skeys, ph1, ph2, pk[:, None], pvalid, max_matches,
+            max_probes)
+    got, exp = hjk.probe_cuda(*args), hjr.probe(*args)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_segment_reduce_kernel(dev, op):
+    n, s = 200_000, 1000
+    v = torch.from_numpy(RNG.normal(size=n).astype(np.float32)).to(dev)
+    v[torch.from_numpy(RNG.integers(0, n, 5)).to(dev)] = float("nan")
+    seg = torch.from_numpy(RNG.integers(-5, s + 5, n).astype(np.int32)).to(dev)
+    got = srk.segment_reduce_cuda(v, seg, s, op)
+    exp = srr.segment_reduce(v, seg, s, op)
+    if op == "sum":
+        scale = srr.segment_reduce(v.abs().nan_to_num(), seg, s, "sum")
+        assert torch.equal(got.isnan(), exp.isnan())
+        ok = ~exp.isnan()
+        assert bool(((got - exp).abs()[ok] <= 1e-5 * scale[ok]).all())
+    else:
+        assert torch.equal(got.nan_to_num(7.0), exp.nan_to_num(7.0))
+        assert torch.equal(got.isnan(), exp.isnan())
+
+
+def test_segment_reduce_fused_kernel(dev):
+    n, s, lanes = 300_000, 4097, 3
+    v = torch.from_numpy(RNG.normal(size=(n, lanes)).astype(np.float32)).to(dev)
+    v[:, 0] = 1.0
+    seg = torch.from_numpy(RNG.integers(0, s + 3, n).astype(np.int32)).to(dev)
+    got = srk.segment_reduce_fused_cuda(v, seg, s)
+    exp = srr.segment_reduce_fused(v, seg, s)
+    assert torch.equal(got[:, 0], exp[:, 0])  # counts are exact
+    scale = srr.segment_reduce_fused(v.abs(), seg, s)
+    assert bool(((got - exp).abs() <= 1e-5 * scale).all())
+
+
+def test_minmax_nan_propagation(dev):
+    v = torch.tensor([1.0, float("nan"), 3.0, 2.0], device=dev)
+    s = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    lo = srk.segment_reduce_cuda(v, s, 3, "min").cpu().numpy()
+    hi = srk.segment_reduce_cuda(v, s, 3, "max").cpu().numpy()
+    np.testing.assert_array_equal(lo, [np.nan, 2.0, np.inf])
+    np.testing.assert_array_equal(hi, [np.nan, 3.0, -np.inf])
