@@ -14,7 +14,12 @@ Phases (every failed check raises; nothing is caught):
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it: exact for hash_partition, probe and
    min/max, counts exact, float sums to ``1e-5 * sum|v|`` per group; times
-   with CUDA events beside the bytes bound and a library yardstick;
+   with CUDA events beside the bytes bound and a library yardstick.
+   ``windowed_scan`` runs on ``(2^25 - 3, 2)`` float32 values (a few NaN)
+   with random segment starts, for windows 1, 7, 32, 512, 4096 and 8192
+   (no multiple of ``n`` but 1) and sum/min/max: min/max exact with NaN
+   propagating, sums bit-exact up to the kernel's 4096-row tile and within
+   ``1e-5 * sum|v|`` over each window beyond it;
 3. main path, 1 shard, full size — ``DataFrame.from_dict`` of left = 2^25
    rows ``{k, g, v}`` and right = 2^23 rows ``{k, w}`` (the order of TPC-H
    SF10 ``lineitem`` against ``orders``), inner join on ``k``, a groupby on
@@ -24,12 +29,29 @@ Phases (every failed check raises; nothing is caught):
    rows, zero overflow, 3 exchanges;
 5. set ops on 4 shards, 2^22 rows a side: union and difference against
    ``np.union1d`` / ``np.setdiff1d``;
-6. summary — the ``kernels`` JSON line, the card's name and power limit,
-   and as the last line ``{"ok": true, "device": {...}}``.
+6. ordered analytics, 1 shard, full size — ``events`` = 2^25 rows ``{g:
+   int32 over 2^16 partitions (~512 rows each), t: int32 over [0, 2^12)
+   (ties inside a partition), v: float32 normal, q: float32 uniform [0,
+   100)}``, the shape of a TPC-DS ``store_sales`` window query (TPC-DS
+   v3 queries 47, 51 and 57: ``rank()``/``avg()`` and a cumulative
+   ``sum()`` over ``partition by`` an item, ``order by`` a date) at one
+   partition per item.  ``sort_values(["g", "t"])``, a rolling window
+   (``rows=32``: sum, mean, min, max, count, lag, lead, rank,
+   row_number), a cumulative window (sum, max), ``topk("v", 1000)`` and
+   an exact ``quantile`` of ``v`` after ``sort_values("v")``, checked
+   against a numpy oracle (order exact; counts, ranks, lag/lead, min/max
+   exact; sums and means within ``1e-5 * sum|v|`` of each window); the
+   exchange counter must read 0;
+7. the same chain on 4 virtual shards: exactly 2 exchanges (the two
+   sorts), no sort and no exchange inside the windows or the exact
+   quantile, zero overflow, every exact lane equal to phase 6's;
+8. summary — the script's seconds so far, the ``kernels`` JSON line, the
+   card's name and power limit, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
-Wall times of phases 3-5 are medians of 3 runs after one checked warm-up
+Wall times of phases 3-7 are medians of 3 runs after one checked warm-up
 run; kernel launch counts are those of the checked runs.  ``--profile``
-adds one ``torch.profiler`` run of each of phases 3-5 (device busy share,
+adds one ``torch.profiler`` run of each of phases 3-7 (device busy share,
 top kernels; tables in ``chiprun_out/profile_*.txt``).
 """
 from __future__ import annotations
@@ -54,6 +76,15 @@ GROUPS, G_OUT_CAP = 1024, 2048
 SET_ROWS = 1 << 22
 G_AGGS = [("v", "sum"), ("v", "mean"), ("v", "min"), ("v", "max"),
           ("w", "sum"), ("v", "count")]
+EVENTS, ITEMS, DAYS = 1 << 25, 1 << 16, 1 << 12
+ROLL = 32
+W_AGGS = [("v", "sum"), ("v", "mean"), ("q", "sum"), ("v", "min"),
+          ("v", "max"), (None, "count"), ("v", "lag"), ("v", "lead"),
+          (None, "rank"), (None, "row_number")]
+CUM_AGGS = [("v", "sum"), ("v", "max")]
+TOPK = 1000
+QS = (0.01, 0.5, 0.99)
+WINDOWS = (1, 7, 32, 512, 4096, 8192)
 
 
 def check(cond, what: str) -> None:
@@ -211,16 +242,20 @@ class Launches:
         from repro_torch.kernels.hash_join import kernel as hjk
         from repro_torch.kernels.hash_partition import kernel as hpk
         from repro_torch.kernels.segment_reduce import kernel as srk
+        from repro_torch.kernels.window_scan import kernel as wsk
         self.counters = {"hash_partition": hpk.LAUNCHES, "probe": hjk.LAUNCHES,
                          "segment_reduce_fused": srk.FUSED_LAUNCHES,
-                         "segment_reduce": srk.LAUNCHES}
+                         "segment_reduce": srk.LAUNCHES,
+                         "windowed_scan": wsk.LAUNCHES}
         self.exchanges = array_ops.EXCHANGES
+        self.sorts = array_ops.SORTS
         self.total = dict.fromkeys(self.counters, 0)
 
     def reset(self):
         for c in self.counters.values():
             c.reset()
         self.exchanges.reset()
+        self.sorts.reset()
 
     def read(self):
         got = {k: c.n for k, c in self.counters.items()}
@@ -407,6 +442,198 @@ def kernel_phase(left, right, dev):
     return rows
 
 
+def window_kernel_phase(dev):
+    """``windowed_scan`` against its plain version for every window and
+    op; returns the kernels-line row at the main path's shape (the
+    rolling window's fused sum lanes) and the per-case rows."""
+    from repro_torch.kernels.window_scan import kernel as wsk
+    from repro_torch.kernels.window_scan import ref as wsr
+
+    n, lanes = EVENTS - 3, 2  # no multiple of any window but 1
+    gen = torch.Generator(device=dev).manual_seed(7)
+    v = torch.randn((n, lanes), generator=gen, device=dev)
+    v[torch.randint(0, n, (64,), generator=gen, device=dev), 0] = float("nan")
+    flags = torch.rand(n, generator=gen, device=dev) < 1 / 512
+    flags[0] = True
+    seg = torch.cummax(torch.where(flags, torch.arange(n, device=dev), 0),
+                       0).values.to(torch.int32)
+    absv = v.abs().nan_to_num()
+    worst, cases = 0.0, []
+    for w in WINDOWS:
+        for op in ("sum", "min", "max"):
+            got = wsk.windowed_scan_cuda(v, seg, w, op)
+            exp = wsr.windowed_scan(v, seg, w, op)
+            what = f"windowed_scan w={w} {op}"
+            check(torch.equal(got.isnan(), exp.isnan()), f"{what}: NaN rows")
+            ok = ~exp.isnan()
+            if op != "sum" or w <= wsk.TILE:
+                check(torch.equal(got.view(torch.int32)[ok],
+                                  exp.view(torch.int32)[ok]),
+                      f"{what}: bit-exact")
+                err = 0.0
+            else:
+                scale = wsr.windowed_scan(absv, seg, w, "sum")
+                diff = (got - exp).abs()[ok]
+                check(bool((diff <= 1e-5 * scale[ok]).all()),
+                      f"{what}: within 1e-5 sum|v|")
+                err = float(diff.max())
+            worst = max(worst, err)
+            del got, exp
+            ms = cuda_ms(lambda: wsk.windowed_scan_cuda(v, seg, w, op))
+            plain = cuda_ms(lambda: wsr.windowed_scan(v, seg, w, op), reps=2)
+            cases.append(dict(window=w, op=op, ms=ms, plain_ms=plain,
+                              max_abs_err=err))
+    # NaN in a window gives NaN under min and max (and sum)
+    nv = torch.tensor([[1.0], [float("nan")], [3.0], [2.0], [5.0]],
+                      device=dev)
+    ns = torch.tensor([0, 0, 0, 3, 3], dtype=torch.int32, device=dev)
+    nan = float("nan")
+    for op, want in (("min", [1, nan, nan, 2, 2]),
+                     ("max", [1, nan, nan, 2, 5]),
+                     ("sum", [1, nan, nan, 2, 7])):
+        got = wsk.windowed_scan_cuda(nv, ns, 2, op)[:, 0].cpu().numpy()
+        check(np.array_equal(got, np.array(want, np.float32), equal_nan=True),
+              f"windowed_scan {op} NaN propagation: {got}")
+    head = next(c for c in cases if c["window"] == ROLL and c["op"] == "sum")
+    b_ms, b_by = bound(n * lanes * 4 * 2 + n * 4, 3 * n * lanes)
+    row = dict(name="windowed_scan",
+               shape=f"({n}, {lanes}) f32, w={ROLL}, sum",
+               max_abs_err=worst, ms=head["ms"], plain_ms=head["plain_ms"],
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return row, cases
+
+
+def make_events(seed: int):
+    rng = np.random.default_rng(seed + 1)
+    return {"g": rng.integers(0, ITEMS, EVENTS, dtype=np.int32),
+            "t": rng.integers(0, DAYS, EVENTS, dtype=np.int32),
+            "v": rng.standard_normal(EVENTS, dtype=np.float32),
+            "q": rng.uniform(0, 100, EVENTS).astype(np.float32)}
+
+
+def window_reduce(x, a, op: str):
+    """Exact ``op(x[a[i] .. i])`` for every ``i``: a sparse table of
+    power-of-two spans, each window covered by two overlapping spans."""
+    n = x.shape[0]
+    i = np.arange(n)
+    k = np.frexp((i - a + 1).astype(np.float64))[1] - 1  # floor(log2(len))
+    f = np.minimum if op == "min" else np.maximum
+    out = np.empty_like(x)
+    level = x
+    for j in range(int(k.max()) + 1):
+        sel = k == j
+        out[sel] = f(level[a[sel]], level[i[sel] - (1 << j) + 1])
+        span = 1 << j
+        level = np.concatenate([f(level[:n - span], level[span:]),
+                                level[n - span:]])
+    return out
+
+
+def ordered_oracle(ev):
+    """numpy answers of the ordered chain (float64 sums, exact the rest).
+
+    Sums never come from differences of one running sum over the whole
+    table: against its magnitude a short window's float64 rounding would
+    exceed the ``1e-5 * sum|v|`` the check allows."""
+    order = np.lexsort((ev["t"], ev["g"]))
+    o = {k: v[order] for k, v in ev.items()}
+    n = EVENTS
+    i = np.arange(n)
+    g, t, v, q = o["g"], o["t"], o["v"], o["q"]
+    seg = np.maximum.accumulate(np.where(np.r_[True, g[1:] != g[:-1]], i, 0))
+    runs = np.r_[True, (g[1:] != g[:-1]) | (t[1:] != t[:-1])]
+    run_start = np.maximum.accumulate(np.where(runs, i, 0))
+    a = np.maximum(i - (ROLL - 1), seg)
+
+    def rolling(x):
+        """float64 window sums and sums of |x|, one shifted add a row."""
+        tot, mag = np.zeros(n), np.zeros(n)
+        for j in range(ROLL):
+            xj = np.where(i - j >= a, np.roll(x, j), 0).astype(np.float64)
+            tot += xj
+            mag += np.abs(xj)
+        return tot, mag
+
+    def cumulative(x):
+        """float64 running sums inside each partition, on a (partitions,
+        longest partition) matrix, so no sum cancels against another
+        partition's."""
+        sid = np.cumsum(seg == i) - 1
+        pos = i - seg
+        m = np.zeros((sid[-1] + 1, pos.max() + 1))
+        m[sid, pos] = x
+        tot = np.cumsum(m, axis=1)[sid, pos]
+        m[sid, pos] = np.abs(x)
+        return tot, np.cumsum(m, axis=1)[sid, pos]
+
+    count = i - a + 1
+    v_sum, v_abs = rolling(v)
+    q_sum, q_abs = rolling(q)
+    same_next = np.r_[seg[1:] == seg[:-1], False]
+    roll = {"count": count, "row_number": i - seg + 1,
+            "rank": run_start - seg + 1,
+            "v_lag": np.where(i - 1 >= seg, np.roll(v, 1), 0),
+            "v_lead": np.where(same_next, np.roll(v, -1), 0),
+            "v_min": window_reduce(v, a, "min"),
+            "v_max": window_reduce(v, a, "max")}
+    close = {"v_sum": (v_sum, v_abs), "q_sum": (q_sum, q_abs),
+             "v_mean": (v_sum / count, v_abs / count)}
+    cum = {"v_max": window_reduce(v, seg, "max")}
+    cum_close = {"v_sum": cumulative(v)}
+    sv = np.sort(ev["v"])
+    tq = np.asarray(QS, np.float32) * np.float32(n - 1)
+    lo, hi = np.floor(tq).astype(np.int64), np.ceil(tq).astype(np.int64)
+    q_exact = sv[lo] + (tq - lo.astype(np.float32)) * (sv[hi] - sv[lo])
+    return {"sorted": o, "roll": roll, "close": close, "cum": cum,
+            "cum_close": cum_close, "top": sv[::-1][:TOPK].copy(),
+            "q": q_exact, "q_np": np.quantile(ev["v"], QS)}
+
+
+def ordered_path(DataFrame, ctx, ev, bucket_factor, sorts):
+    """The ordered chain through the user entry points; ``sorts`` (the
+    sort counter) is read around the windows and the exact quantile."""
+    df = DataFrame.from_dict(ev, ctx, bucket_factor=bucket_factor)
+    s = df.sort_values(["g", "t"])
+    before = sorts.n
+    roll = s.window(["g"], ["t"]).agg(W_AGGS, rows=ROLL)
+    cum = s.window(["g"], ["t"]).agg(CUM_AGGS, rows=None)
+    win_sorts = sorts.n - before
+    top = s.topk("v", TOPK)
+    sv = s.sort_values("v")
+    before = sorts.n
+    q = sv.quantile("v", QS, method="exact")
+    torch.cuda.synchronize()
+    return {"sorted": s, "roll": roll, "cum": cum, "top": top, "sv": sv,
+            "q": q, "win_sorts": win_sorts, "q_sorts": sorts.n - before}
+
+
+def check_ordered(res, oracle, tag: str):
+    """Order exact, exact lanes exact, sums within ``1e-5 * sum|v|`` of
+    each window; returns the windows' columns."""
+    got = res["sorted"].to_numpy()
+    for k, want in oracle["sorted"].items():
+        check(np.array_equal(got[k], want), f"{tag}: sorted column {k}")
+    out = {}
+    for name, exact, close in (("roll", oracle["roll"], oracle["close"]),
+                               ("cum", oracle["cum"], oracle["cum_close"])):
+        w = res[name].to_numpy()
+        for k, want in exact.items():
+            check(np.array_equal(w[k], want), f"{tag}: {name} {k}")
+        for k, (want, scale) in close.items():
+            check_close(w[k], want, scale, f"{tag}: {name} {k}")
+        check(res[name].overflow_report.is_exact(), f"{tag}: {name} exact")
+        out[name] = w
+    check(np.array_equal(res["top"].to_numpy()["v"], oracle["top"]),
+          f"{tag}: topk values")
+    check(np.array_equal(res["q"], oracle["q"]), f"{tag}: exact quantile "
+          f"{res['q']} vs {oracle['q']}")
+    check(np.allclose(res["q"], oracle["q_np"], rtol=1e-5, atol=1e-6),
+          f"{tag}: quantile vs np.quantile")
+    check(res["win_sorts"] == 0, f"{tag}: windows sorted {res['win_sorts']}x")
+    check(res["q_sorts"] == 0, f"{tag}: exact quantile sorted")
+    return out
+
+
 SOURCES = {
     "hash_partition": ("src/repro_torch/csrc/hash_partition.cu",
                        "src/repro/kernels/hash_partition/kernel.py:75"),
@@ -416,6 +643,8 @@ SOURCES = {
                              "src/repro/kernels/segment_reduce/kernel.py:111"),
     "segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                        "src/repro/kernels/segment_reduce/kernel.py:80"),
+    "windowed_scan": ("src/repro_torch/csrc/window_scan.cu",
+                      "src/repro/kernels/window_scan/kernel.py:75"),
 }
 
 
@@ -431,8 +660,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one run of each of phases 3-5")
+                    help="also profile one run of each of phases 3-7")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -457,8 +687,12 @@ def main() -> int:
 
     # 2. kernels vs plain
     krows = kernel_phase(left, right, dev)
+    wrow, wcases = window_kernel_phase(dev)
+    krows.append(wrow)
     for r in krows:
         emit("kernel", **r)
+    for c in wcases:
+        emit("window_kernel", **c)
 
     launches = Launches()
     left_dev = {k: torch.from_numpy(v).to(dev) for k, v in left.items()}
@@ -521,7 +755,53 @@ def main() -> int:
          median_s=statistics.median(runs5), runs_s=runs5,
          union_rows=int(u.shape[0]), difference_rows=int(d.shape[0]))
 
-    # 6. summary
+    # 6. ordered analytics, 1 shard
+    events = make_events(args.seed)
+    ord_oracle = ordered_oracle(events)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    res6 = ordered_path(DataFrame, ctx1, events, 1.0, launches.sorts)
+    counts6, ex6 = launches.read()
+    check(ex6 == 0, f"ordered 1 shard exchanges: {ex6}")
+    check(counts6["windowed_scan"] > 0, "ordered 1 shard launches "
+          "windowed_scan")
+    w1 = check_ordered(res6, ord_oracle, "ordered 1 shard")
+    peak6 = torch.cuda.max_memory_allocated() / 2**30
+    del res6
+    runs6 = timed_runs(lambda: ordered_path(DataFrame, ctx1, events, 1.0,
+                                            launches.sorts))
+    if args.profile:
+        profile_run("ordered_1shard", lambda: ordered_path(
+            DataFrame, ctx1, events, 1.0, launches.sorts))
+    emit("ordered_1shard", launches=counts6, exchanges=ex6,
+         median_s=statistics.median(runs6), runs_s=runs6, peak_gib=peak6)
+
+    # 7. the ordered chain on 4 virtual shards
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    res7 = ordered_path(DataFrame, ctx4, events, 2.0, launches.sorts)
+    counts7, ex7 = launches.read()
+    check(ex7 == 2, f"ordered 4 shard exchanges: {ex7} (the two sorts)")
+    check(counts7["windowed_scan"] > 0, "ordered 4 shards launch "
+          "windowed_scan")
+    check(res7["sv"].overflow_report.is_exact(), "4 shards sort exact")
+    w4 = check_ordered(res7, ord_oracle, "ordered 4 shards")
+    for name in ("roll", "cum"):
+        for k, v in w1[name].items():
+            if not k.endswith(("_sum", "_mean")):
+                check(np.array_equal(v, w4[name][k]),
+                      f"4-shard {name} {k} equals 1 shard")
+    peak7 = torch.cuda.max_memory_allocated() / 2**30
+    del res7, w1, w4
+    runs7 = timed_runs(lambda: ordered_path(DataFrame, ctx4, events, 2.0,
+                                            launches.sorts))
+    if args.profile:
+        profile_run("ordered_4shards", lambda: ordered_path(
+            DataFrame, ctx4, events, 2.0, launches.sorts))
+    emit("ordered_4shards", launches=counts7, exchanges=ex7,
+         median_s=statistics.median(runs7), runs_s=runs7, peak_gib=peak7)
+
+    # 8. summary
     kernels = []
     for r in krows:
         name = r["name"]
@@ -534,6 +814,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    emit("summary", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,5 +3,6 @@ from . import array_ops, table_ops
 from .context import HPTMTContext, local_context, resolve_device
 from .operator import Abstraction, Execution, Style, get_operator, list_operators
 from .report import OverflowError, OverflowReport
-from .table import (DistTable, Table, hash_columns, partitioning_keys,
-                    partitioning_kind)
+from .table import (RANGE_MARKER, DistTable, Table, hash_columns,
+                    partitioning_ascending, partitioning_keys,
+                    partitioning_kind, range_partitioning)

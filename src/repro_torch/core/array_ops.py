@@ -6,12 +6,24 @@ that axis:
 
   * :func:`all_to_all` — shard ``s`` sends ``frames[s, d]`` to shard ``d``:
     the transpose of the ``(P, P, ...)`` send frames;
-  * :func:`allreduce` — a sum over the shard axis.
+  * :func:`allreduce` — a sum over the shard axis;
+  * :func:`allgather` — every shard's value, stacked along a new leading
+    shard axis (the window engine's per-shard summaries, the range
+    exchange's splitter samples);
+  * :func:`ppermute` — shard blocks shifted along a permutation (the
+    window halo, the top-k tree reduce).
 
 :func:`all_to_all` is the ONE exchange choke point of the port: every row
 exchange goes through it, and :data:`EXCHANGES` counts its calls.  The
 count stands in for the reference tests' jaxpr ``all_to_all`` count, so
 the shuffle-elision contracts (DESIGN.md §4) are asserted on it.
+:func:`allgather` and :func:`ppermute` move small per-shard state, not
+rows of a table, and do not count as exchanges.
+
+:data:`SORTS` counts the port's stable lexicographic sorts
+(``core/exchange.py:lex_order``, the one sort choke point); it stands in
+for the reference tests' jaxpr ``"sort["`` check of the ordered
+operators (DESIGN.md §9: a window on a range layout sorts nothing).
 """
 from __future__ import annotations
 
@@ -35,6 +47,8 @@ class Counter:
 
 #: calls of :func:`all_to_all` — one per shuffle
 EXCHANGES = Counter()
+#: calls of ``exchange.lex_order`` — one per stable lexicographic sort
+SORTS = Counter()
 
 
 def all_to_all(frames: Sequence[torch.Tensor]) -> list:
@@ -48,3 +62,18 @@ def all_to_all(frames: Sequence[torch.Tensor]) -> list:
 def allreduce(values: Sequence[torch.Tensor]) -> torch.Tensor:
     """Sum of one scalar per shard (the overflow counts' allreduce)."""
     return sum(values[1:], values[0])
+
+
+def allgather(values: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One value per shard → the ``(P, ...)`` stack every shard sees."""
+    return torch.stack(list(values))
+
+
+def ppermute(frames: Sequence[torch.Tensor], perm) -> list:
+    """Shift shard blocks along ``perm``, a sequence of ``(src, dst)``
+    pairs: shard ``dst`` receives ``frames[src]``.  A shard no pair sends
+    to receives zeros, as JAX's ``ppermute`` delivers."""
+    out = [torch.zeros_like(f) for f in frames]
+    for src, dst in perm:
+        out[dst] = frames[src]
+    return out

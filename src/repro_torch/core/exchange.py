@@ -1,8 +1,8 @@
-"""Fused single-collective row exchange (shuffle hot path, Fig 2) — hash half.
+"""Fused single-collective row exchange (shuffle hot path, Fig 2).
 
-Every distributed table operator (join, groupby, set ops) reduces to the
-shuffle primitive: re-distributing rows so related keys land on the same
-shard (paper §IV-B-1).  The port keeps the reference's three
+Every distributed table operator (join, groupby, set ops, orderby)
+reduces to the shuffle primitive: re-distributing rows so related keys
+land on the same shard (paper §IV-B-1).  The port keeps the reference's three
 optimisations (reference DESIGN.md §3):
 
   1. **Packed exchange** — every column is bit-cast to uint32 lanes and
@@ -16,6 +16,12 @@ optimisations (reference DESIGN.md §3):
   3. **Hash carrying** — the row hashes ``(h1, h2)`` computed for the
      destinations travel as hidden columns (:data:`H1_NAME` /
      :data:`H2_NAME`), so join and set-op kernels never rehash.
+
+The range half (reference DESIGN.md §9) is the ordered twin: monotone
+uint32 sort lanes (:func:`sort_key_lanes`), the one stable lexicographic
+sort of the port (:func:`lex_order`, counted by ``array_ops.SORTS``), and
+the sample-sort exchange :func:`range_shuffle`, which rides the same
+single packed all-to-all.
 
 Shards are virtual (``core/context.py``): a function that moves rows
 between shards takes one entry per shard and runs each shard's local
@@ -33,7 +39,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .array_ops import all_to_all
+from .array_ops import SORTS, all_to_all, allgather
 
 Cols = Dict[str, torch.Tensor]
 
@@ -163,11 +169,11 @@ def compact_rows(cols: Cols, keep: torch.Tensor, out_capacity: int
 
 
 def _histogram(dest: torch.Tensor, n_parts: int) -> torch.Tensor:
-    """Per-destination count of valid rows (``dest < n_parts``)."""
-    d = torch.clamp(dest.to(torch.int64), 0, n_parts)
-    hist = torch.zeros(n_parts + 1, dtype=torch.int32, device=dest.device)
-    hist.scatter_add_(0, d, torch.ones_like(d, dtype=torch.int32))
-    return hist[:n_parts]
+    """Per-destination count of valid rows (``dest < n_parts``): one
+    reduction per destination (a scatter-add of every row into ``n_parts``
+    counters contends on the card)."""
+    return torch.stack([(dest == p).sum(dtype=torch.int32)
+                        for p in range(n_parts)])
 
 
 # ===========================================================================
@@ -270,6 +276,161 @@ def hash_shuffle(cols: Sequence[Cols], counts: Sequence[torch.Tensor],
         out.append(cols_s)
         new_counts.append(n)
         overflow.append(o + ov_recv)
+    return out, new_counts, overflow
+
+
+# ===========================================================================
+# sample-sort range partitioning (reference DESIGN.md §9)
+# ===========================================================================
+_M32 = 0xFFFFFFFF
+_SIGN = 0x80000000
+
+
+def sort_key_lanes(col: torch.Tensor, ascending: bool = True) -> torch.Tensor:
+    """Monotone ``(n, 1)`` view of a key column for ordering: uint32
+    values held in int64 (torch on the CPU has no uint32 compare or sort).
+
+    Unsigned comparison of the lanes reproduces the column's value order:
+
+      * floats narrow to f32 and map through the total-order transform
+        (sign bit set for non-negatives, full complement for negatives),
+        so ``-inf < -0.0 < +0.0 < +inf`` — ±0.0 are two lane values;
+      * signed integers flip their sign bit; unsigned/bool widen as-is;
+      * ``ascending=False`` complements the lane, reversing the order.
+
+    NaN-last contract: every NaN is forced to ``0xFFFFFFFF`` AFTER the
+    direction flip, so NaNs form one block at the END of the order in
+    both directions.  64-bit key dtypes are rejected, as in the reference.
+    """
+    if col.dtype.itemsize == 8:
+        raise TypeError(
+            f"orderby/range-partition key dtype {col.dtype} is 64-bit; "
+            f"narrow the column to a 32-bit type first")
+    if col.dim() > 1:
+        raise TypeError("orderby/range-partition keys must be 1-D columns")
+    nan = None
+    if col.is_floating_point():
+        f = col.to(torch.float32)
+        b = f.contiguous().view(torch.int32).to(torch.int64) & _M32
+        m = torch.where(b >= _SIGN, b ^ _M32, b | _SIGN)
+        nan = torch.isnan(f)
+    elif col.dtype == torch.bool or not col.is_signed():
+        m = col.to(torch.int64)
+    else:
+        m = (col.to(torch.int32).to(torch.int64) & _M32) ^ _SIGN
+    if not ascending:
+        m = m ^ _M32
+    if nan is not None:
+        m = torch.where(nan, _M32, m)
+    return m[:, None]
+
+
+def order_lanes(cols: Cols, key_names: Sequence[str],
+                ascending: Sequence[bool]) -> torch.Tensor:
+    """Concatenated directional lanes for multi-key ordering: row ``i``
+    sorts before row ``j`` iff ``lanes[i]`` is lexicographically below
+    ``lanes[j]`` (lane 0 most significant)."""
+    return torch.cat([sort_key_lanes(cols[k], asc)
+                      for k, asc in zip(key_names, ascending)], dim=1)
+
+
+def lex_order(keys, mask: torch.Tensor) -> torch.Tensor:
+    """Stable lexicographic sort permutation; invalid rows last.
+
+    ``keys`` is an ``(n, L)`` lane matrix (:func:`order_lanes`) or a
+    sequence of 1-D key tensors, most significant first.  Equal keys keep
+    their row order, so the permutation is ``jnp.lexsort``'s — stable
+    sorts from the least significant key up.  The port's one sort choke
+    point: every call adds one to ``array_ops.SORTS``.
+    """
+    SORTS.add()
+    keys = list(keys.unbind(1)) if isinstance(keys, torch.Tensor) \
+        else list(keys)
+    order = torch.arange(mask.shape[0], device=mask.device)
+    for key in keys[::-1] + [(~mask).to(torch.int8)]:
+        order = order[torch.argsort(key[order], stable=True)]
+    return order
+
+
+def _lex_leq(splitters: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """``(S, n)`` bool: splitter ``s`` <= row lexicographically."""
+    res = torch.ones((splitters.shape[0], lanes.shape[0]), dtype=torch.bool,
+                     device=lanes.device)
+    for lane in range(lanes.shape[1] - 1, -1, -1):
+        sp = splitters[:, lane][:, None]
+        rw = lanes[:, lane][None, :]
+        res = (sp < rw) | ((sp == rw) & res)
+    return res
+
+
+def range_splitters(lanes: Sequence[torch.Tensor],
+                    masks: Sequence[torch.Tensor], n_shards: int,
+                    n_samples: int) -> torch.Tensor:
+    """Per-shard regular sampling + all-gather → ``n_shards - 1``
+    splitters (``(n_shards - 1, L)`` lanes).
+
+    Each shard samples ``n_samples`` valid rows at a regular stride
+    (invalid samples pad with ``0xFFFFFFFF``), the shards pool their
+    samples with one all-gather, sort them, and read the splitters at
+    ``(arange(1, P) * total) // P`` — the reference's placement exactly.
+    """
+    samples = []
+    for ln, mask in zip(lanes, masks):
+        count = mask.sum(dtype=torch.int64)
+        stride = torch.clamp(count // n_samples, min=1)
+        sidx = torch.minimum(
+            torch.arange(n_samples, device=ln.device) * stride,
+            torch.clamp(count - 1, min=0))
+        samples.append(torch.where((sidx < count)[:, None], ln[sidx], _M32))
+    sample = allgather(samples).reshape(-1, lanes[0].shape[1])
+    sample = sample[lex_order(sample, torch.ones(sample.shape[0],
+                                                 dtype=torch.bool,
+                                                 device=sample.device))]
+    total = sample.shape[0]
+    spos = (torch.arange(1, n_shards, device=sample.device) * total) \
+        // n_shards
+    return sample[spos]
+
+
+def range_shuffle(cols: Sequence[Cols], counts: Sequence[torch.Tensor],
+                  key_names: Sequence[str], ascending: Sequence[bool],
+                  n_shards: int, bucket: int, out_capacity: int, *,
+                  n_samples: int = 64, sort_local: bool = True):
+    """Sample-sort range partitioning + packed exchange (+ local sort).
+
+    Destinations come from a lexicographic compare against sampled
+    splitters instead of a hash, and the rows ride the same single packed
+    all-to-all as :func:`hash_shuffle`.  A row goes to
+    ``#{splitters <= row}`` (side "right"), so rows with equal full keys
+    share a shard.  With ``sort_local`` the received rows are lexsorted:
+    the result is globally ordered by ``(key_names, ascending)``, NaNs
+    last — the layout operators record as
+    ``("range", keys, ascending, n_shards)``.
+
+    Returns ``(columns, new_count, overflow)``, one entry per shard.
+    """
+    masks = [torch.arange(next(iter(c.values())).shape[0],
+                          device=n.device) < n for c, n in zip(cols, counts)]
+    lanes = [order_lanes(c, key_names, ascending) for c in cols]
+    if n_shards > 1:
+        splitters = range_splitters(lanes, masks, n_shards, n_samples)
+        dests = [torch.where(m, _lex_leq(splitters, ln).sum(0), n_shards)
+                 for ln, m in zip(lanes, masks)]
+        bufs, valid, ov_send = exchange_rows(cols, dests, n_shards, bucket)
+        out, new_counts, overflow = [], [], []
+        for b, v, o in zip(bufs, valid, ov_send):
+            c, n, o2 = compact_rows(b, v, out_capacity)
+            out.append(c)
+            new_counts.append(n)
+            overflow.append(o + o2)
+    else:
+        c, n, o = compact_rows(cols[0], masks[0], out_capacity)
+        out, new_counts, overflow = [c], [n], [o]
+    if sort_local:
+        for i, (c, n) in enumerate(zip(out, new_counts)):
+            m = torch.arange(out_capacity, device=n.device) < n
+            order = lex_order(order_lanes(c, key_names, ascending), m)
+            out[i] = {k: v[order] for k, v in c.items()}
     return out, new_counts, overflow
 
 

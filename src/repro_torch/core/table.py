@@ -185,21 +185,43 @@ def _pad_axis0(x: torch.Tensor, capacity: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # distributed Table
 # ---------------------------------------------------------------------------
-#: Partitioning metadata (reference DESIGN.md §4): ``(hash_keys, n_shards)``
-#: after a hash exchange on ``hash_keys``, or ``None`` when the layout is
-#: unknown.  (The reference's range form arrives with the ordered-analytics
-#: slice.)
+#: Partitioning metadata (reference DESIGN.md §4/§9): ``(hash_keys,
+#: n_shards)`` after a hash exchange on ``hash_keys``,
+#: ``("range", keys, ascending, n_shards)`` after a range exchange (an
+#: orderby), or ``None`` when the layout is unknown.  The range form is
+#: told apart by its leading :data:`RANGE_MARKER`; use the helpers below
+#: instead of destructuring.
 Partitioning = Optional[tuple]
+
+RANGE_MARKER = "range"
+
+
+def range_partitioning(keys: Sequence[str], ascending: Sequence[bool],
+                       n_shards: int) -> tuple:
+    """Ordered-layout metadata produced by orderby / range repartition."""
+    return (RANGE_MARKER, tuple(keys), tuple(bool(a) for a in ascending),
+            int(n_shards))
 
 
 def partitioning_kind(part: Partitioning) -> Optional[str]:
-    """``"hash"`` or ``None`` for a metadata tuple."""
-    return None if part is None else "hash"
+    """``"hash"`` / ``"range"`` / ``None`` for a metadata tuple."""
+    if part is None:
+        return None
+    return RANGE_MARKER if part[0] == RANGE_MARKER else "hash"
 
 
 def partitioning_keys(part: Partitioning) -> Tuple[str, ...]:
     """The ordered key columns the layout evidence depends on (() if None)."""
-    return () if part is None else part[0]
+    if part is None:
+        return ()
+    return part[1] if part[0] == RANGE_MARKER else part[0]
+
+
+def partitioning_ascending(part: Partitioning) -> Tuple[bool, ...]:
+    """Per-key sort directions of a range layout (() for hash/None)."""
+    if part is None or part[0] != RANGE_MARKER:
+        return ()
+    return part[2]
 
 
 class DistTable:
@@ -211,10 +233,12 @@ class DistTable:
     (:meth:`shard_table`).
 
     ``partitioning`` records how rows were assigned to shards:
-    ``(hash_keys, n_shards)`` after a hash exchange on ``hash_keys``, else
-    ``None``.  Operators skip a shuffle when equal keys are already
-    co-located.  Constructors that cannot prove a layout (``from_local``)
-    leave it ``None``.
+    ``(hash_keys, n_shards)`` after a hash exchange on ``hash_keys``,
+    ``("range", keys, ascending, n_shards)`` after a range exchange (rows
+    globally sorted, contiguous key ranges per shard), else ``None``.
+    Operators skip a shuffle (hash) or a sort (range) when the layout
+    already holds.  Constructors that cannot prove a layout
+    (``from_local``) leave it ``None``.
     """
 
     def __init__(self, columns: Columns, counts,

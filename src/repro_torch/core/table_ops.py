@@ -16,8 +16,9 @@ capacity) is *counted and returned*, never silently corrupted.
 Operators implemented here (→ paper table):
   select, project                          — Table II (local)
   union, difference                        — Table II (distributed)
-  intersect, join, aggregate,
+  intersect, join, orderby, aggregate,
   groupby(+aggregate)                      — Table III (distributed)
+  window_aggregate, rank, topk, quantile   — ordered analytics (§9)
   shuffle                                  — Fig 2 primitive
 
 ``join(method="sort")`` and ``cartesian`` belong to a later slice of the
@@ -28,19 +29,22 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .array_ops import allreduce
+from .array_ops import allgather, allreduce, ppermute
 from .context import HPTMTContext
 from .exchange import (_scatter_rows, check_no_reserved, compact_rows,
-                       hash_shuffle, key_compare_u32, take_hashes)
+                       hash_shuffle, key_compare_u32, lex_order, order_lanes,
+                       range_shuffle, take_hashes)
 from .operator import Abstraction, operator
-from .table import DistTable, _pad_axis0, hash_columns, partitioning_keys
+from .table import (DistTable, _pad_axis0, hash_columns,
+                    partitioning_ascending, partitioning_keys,
+                    partitioning_kind, range_partitioning)
 
 Cols = Dict[str, torch.Tensor]
 
-_LATER = ("is not ported yet: it arrives with the ordered-analytics slice "
-          "of the PyTorch port")
+_LATER = "is not ported yet: it arrives with a later slice of the PyTorch port"
 
 
 def _zero(dev) -> torch.Tensor:
@@ -59,17 +63,6 @@ def _bcast(mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Broadcast a row mask over ``v``'s trailing dims; zero masked rows."""
     return torch.where(mask.reshape((-1,) + (1,) * (v.dim() - 1)), v,
                        torch.zeros_like(v))
-
-
-def _sort_order(sort_keys: Sequence[torch.Tensor],
-                mask: torch.Tensor) -> torch.Tensor:
-    """Stable lexicographic order of valid rows by ``sort_keys`` (first
-    key most significant); invalid rows go last — ``jnp.lexsort`` as the
-    reference calls it, by stable sorts from the least significant key."""
-    order = torch.arange(mask.shape[0], device=mask.device)
-    for key in list(sort_keys[::-1]) + [(~mask).to(torch.int8)]:
-        order = order[torch.argsort(key[order], stable=True)]
-    return order
 
 
 # ===========================================================================
@@ -146,6 +139,341 @@ def project(dt: DistTable, columns: Sequence[str], *,
     if part is not None and not set(partitioning_keys(part)) <= set(columns):
         part = None
     return DistTable({k: dt.columns[k] for k in columns}, dt.counts, part)
+
+
+# ===========================================================================
+# OrderBy (Table III) — multi-key distributed sample sort (DESIGN.md §9)
+# ===========================================================================
+def _normalize_order(by, ascending, column_names, kwarg: str):
+    """Validate sort keys/directions eagerly; returns ``(keys, ascending)``.
+
+    ``by`` is a column name or a sequence of them; ``ascending`` a bool or
+    a per-key sequence.  Errors name the offending kwarg and value.
+    """
+    keys = (by,) if isinstance(by, str) else tuple(by)
+    if not keys:
+        raise ValueError(f"{kwarg}= needs at least one key column")
+    missing = [k for k in keys if k not in column_names]
+    if missing:
+        raise ValueError(f"{kwarg}= names unknown column(s) {missing}; "
+                         f"table has {sorted(column_names)}")
+    if isinstance(ascending, bool):
+        asc = (ascending,) * len(keys)
+    else:
+        asc = tuple(bool(a) for a in ascending)
+        if len(asc) != len(keys):
+            raise ValueError(
+                f"ascending= has {len(asc)} entries for {len(keys)} "
+                f"{kwarg}= keys — provide one bool, or one per key")
+    return keys, asc
+
+
+@operator("table.orderby", Abstraction.TABLE)
+def orderby(dt: DistTable, by, *, ctx: HPTMTContext,
+            ascending=True, out_capacity: Optional[int] = None,
+            bucket_factor: float = 2.0, n_samples: int = 64,
+            ) -> Tuple[DistTable, torch.Tensor]:
+    """Globally sort rows via multi-key sample sort (Table III OrderBy).
+
+    ``by`` is one column name or a sequence; ``ascending`` one bool or one
+    per key.  NaN keys sort LAST in both directions.  Destination shards
+    come from sampled splitters and the rows ride the same single packed
+    all-to-all as a hash shuffle; rows with equal full keys never straddle
+    a shard boundary.
+
+    The output records ``("range", keys, ascending, n_shards)``
+    partitioning: ``window`` / ``rank`` / ``quantile`` / another
+    ``orderby`` on the same keys then add no exchange and no sort.  A call
+    on an input already carrying exactly this layout is a no-op (unless it
+    also resizes).
+    """
+    keys, asc = _normalize_order(by, ascending, dt.column_names, "by")
+    n = ctx.n_shards
+    part = range_partitioning(keys, asc, n)
+    if dt.partitioning == part and (out_capacity is None
+                                    or out_capacity == dt.capacity):
+        return dt, _zero(dt.device)
+    cols, counts = dt.shards()
+    out, new_counts, overflow = range_shuffle(
+        cols, counts, keys, asc, n,
+        _bucket_capacity(dt.capacity, n, bucket_factor),
+        out_capacity or dt.capacity, n_samples=min(n_samples, dt.capacity))
+    return DistTable.from_shards(out, new_counts, part), allreduce(overflow)
+
+
+@operator("table.local_sort", Abstraction.TABLE)
+def local_sort(dt: DistTable, by, *, ctx: HPTMTContext, ascending=True,
+               partitioning: object = "auto"
+               ) -> Tuple[DistTable, torch.Tensor]:
+    """Sort rows *within each shard* — no exchange.
+
+    Rows never cross shards, so this is not a global sort on its own.
+    ``partitioning`` stamps the output metadata: ``"auto"`` keeps a hash
+    layout (rows did not move) and drops anything else — a range layout
+    on other keys no longer describes the order; an explicit value is
+    trusted verbatim.  Same NaN-last key semantics as ``orderby``.
+    """
+    keys, asc = _normalize_order(by, ascending, dt.column_names, "by")
+    if partitioning == "auto":
+        part = dt.partitioning if partitioning_kind(dt.partitioning) \
+            == "hash" else None
+    else:
+        part = partitioning
+    outs = []
+    for cols, count in zip(*dt.shards()):
+        order = lex_order(order_lanes(cols, keys, asc),
+                          _mask_for(count, _cap(cols)))
+        outs.append({k: v[order] for k, v in cols.items()})
+    return DistTable.from_shards(outs, dt.counts.unbind(0), part), \
+        _zero(dt.device)
+
+
+# ===========================================================================
+# Windowed aggregation / rank / top-k / quantile (DESIGN.md §9)
+# ===========================================================================
+@operator("table.window", Abstraction.TABLE)
+def window_aggregate(dt: DistTable, partition_by, order_by, aggs, *,
+                     ctx: HPTMTContext, rows: Optional[int] = None,
+                     ascending=True, bucket_factor: float = 2.0,
+                     n_samples: int = 64) -> Tuple[DistTable, torch.Tensor]:
+    """SQL-style window functions over ``(PARTITION BY, ORDER BY)`` groups.
+
+    ``aggs`` entries are ``(column, op)`` or ``(column, op, offset)`` with
+    op in sum/mean/count/min/max (over a trailing window of ``rows`` rows;
+    ``None`` = cumulative), lag/lead (offset gathers, zero outside the
+    partition), and ``(None, "row_number")`` / ``(None, "rank")``.  Output
+    = input columns plus one labeled column per agg; rows never move or
+    drop.  A window wider than its partition clips to it (SQL ROWS
+    BETWEEN); partition identity is the ordering identity.
+
+    The input must be ordered by ``partition_by + order_by``: when its
+    metadata already records that range layout the sort is elided and the
+    operator adds no exchange and no sort (halo and carry state move by
+    ppermute and all-gather); otherwise one sample-sort exchange runs
+    first.  Overflow counts *truncated windows*; zero certifies the
+    result.
+    """
+    from ..window import eval_window, normalize_aggs  # window imports core
+
+    pkeys = tuple(partition_by) if not isinstance(partition_by, str) \
+        else (partition_by,)
+    missing = [k for k in pkeys if k not in dt.column_names]
+    if missing:
+        raise ValueError(f"partition_by= names unknown column(s) "
+                         f"{missing}; table has {sorted(dt.column_names)}")
+    okeys, asc_o = _normalize_order(order_by, ascending, dt.column_names,
+                                    "order_by")
+    norm = normalize_aggs(aggs, dt.column_names, rows)
+    n = ctx.n_shards
+    max_off = max((p for _, _, op, p in norm if op in ("lag", "lead")),
+                  default=0)
+    lookback = max(rows - 1 if rows is not None else 0, max_off)
+    if n > 1 and lookback > dt.capacity:
+        raise ValueError(
+            f"window lookback {lookback} (rows=/lag/lead offsets) exceeds "
+            f"the per-shard capacity {dt.capacity}; raise the capacity or "
+            f"repartition over fewer shards")
+    keys = pkeys + okeys
+    asc = (True,) * len(pkeys) + asc_o
+    part = range_partitioning(keys, asc, n)
+    cols, counts = dt.shards()
+    ov = [_zero(dt.device) for _ in cols]
+    if dt.partitioning != part:
+        cols, counts, ov = range_shuffle(
+            cols, counts, keys, asc, n,
+            _bucket_capacity(dt.capacity, n, bucket_factor), dt.capacity,
+            n_samples=min(n_samples, dt.capacity))
+    new_cols, o = eval_window(cols, counts, pkeys=pkeys, okeys=okeys,
+                              ascending=asc, aggs=norm, rows=rows,
+                              n_shards=n)
+    outs = [dict(c, **nc) for c, nc in zip(cols, new_cols)]
+    return (DistTable.from_shards(outs, counts, part),
+            allreduce([a + b for a, b in zip(ov, o)]))
+
+
+def rank(dt: DistTable, partition_by, order_by, *, ctx: HPTMTContext,
+         ascending=True, **kw) -> Tuple[DistTable, torch.Tensor]:
+    """Convenience: add SQL ``rank`` (+``row_number``) window columns."""
+    return window_aggregate(
+        dt, partition_by, order_by,
+        [(None, "rank"), (None, "row_number")], ctx=ctx,
+        ascending=ascending, **kw)
+
+
+def _topk_candidates(cols: Cols, valid: torch.Tensor, keys, asc, k: int):
+    """The first ``k`` rows of ``cols`` in ``(keys, asc)`` order."""
+    take = lex_order(order_lanes(cols, keys, asc), valid)[:k]
+    return {name: v[take] for name, v in cols.items()}
+
+
+@operator("table.topk", Abstraction.TABLE)
+def topk(dt: DistTable, by, k: int, *, ctx: HPTMTContext,
+         largest: bool = True, ascending=None) -> DistTable:
+    """The first ``k`` rows of the global sort order, without a global
+    sort: per-shard top-k candidates tree-reduce over ``log2(p)`` ppermute
+    rounds of 2k-row merges (pairs ``s + 2^t → s``, own candidates first)
+    — no exchange.
+
+    ``largest=True`` (default) means descending by ``by``; ``ascending=``
+    per-key directions override.  The result lands on shard 0, globally
+    sorted, with the matching range metadata.
+    """
+    if not isinstance(k, int) or k < 1:
+        raise ValueError(f"k={k!r} must be a positive int")
+    if ctx.n_shards > 1 and k > dt.capacity:
+        # a shard can only surface `capacity` candidates, so a bigger k
+        # would silently return fewer rows than asked — reject eagerly
+        raise ValueError(
+            f"k={k} exceeds the per-shard capacity {dt.capacity}; raise "
+            f"the capacity or use orderby for a full sort")
+    if ascending is None:
+        ascending = not largest
+    keys, asc = _normalize_order(by, ascending, dt.column_names, "by")
+    n = ctx.n_shards
+    k = min(k, dt.capacity)
+    cand, ccnt = [], []
+    for cols, count in zip(*dt.shards()):
+        cand.append(_topk_candidates(cols, _mask_for(count, _cap(cols)),
+                                     keys, asc, k))
+        ccnt.append(torch.clamp(count, max=k))
+    for t in range(max(n - 1, 0).bit_length()):
+        step = 1 << t
+        perm = [(s + step, s) for s in range(0, n - step, 2 * step)]
+        recv = {name: ppermute([c[name] for c in cand], perm)
+                for name in cand[0]}
+        rcnt = ppermute(ccnt, perm)
+        # only receivers merge: a shard that receives nothing would merge
+        # with zero valid rows and keep its candidates
+        for _, s in perm:
+            merged = {name: torch.cat([v, recv[name][s]])
+                      for name, v in cand[s].items()}
+            j = torch.arange(k, device=dt.device)
+            cand[s] = _topk_candidates(
+                merged, torch.cat([j < ccnt[s], j < rcnt[s]]), keys, asc, k)
+            ccnt[s] = torch.clamp(ccnt[s] + rcnt[s], max=k)
+    if n > 1:
+        keep = torch.arange(k, device=dt.device) < ccnt[0]
+        cand = [{name: _bcast(keep, v) for name, v in cand[0].items()}] + [
+            {name: torch.zeros_like(v) for name, v in cand[0].items()}
+            for _ in range(n - 1)]
+        ccnt = [ccnt[0]] + [torch.zeros_like(ccnt[0])] * (n - 1)
+    return DistTable.from_shards(cand, ccnt, range_partitioning(keys, asc, n))
+
+
+def _quantile_approx(cols, counts, column, qarr, n_samples):
+    """Splitter-style sketch: quantiles of a pooled per-shard regular
+    sample of the non-NaN values; no exchange."""
+    samples, nvals = [], []
+    for c, count in zip(cols, counts):
+        col = c[column].to(torch.float32)
+        cap = col.shape[0]
+        mask = _mask_for(count, cap) & ~torch.isnan(col)
+        svals, scnt, _ = compact_rows({"v": col}, mask, cap)
+        stride = torch.clamp(scnt // n_samples, min=1)
+        sidx = torch.minimum(
+            torch.arange(n_samples, device=col.device) * stride,
+            torch.clamp(scnt - 1, min=0))
+        ok = sidx < scnt
+        samples.append(torch.where(ok, svals["v"][sidx], float("inf")))
+        nvals.append(ok.sum(dtype=torch.int32))
+    sample = allgather(samples).reshape(-1)
+    nval = allreduce(nvals)
+    ones = torch.ones(sample.shape[0], dtype=torch.bool, device=sample.device)
+    sample = sample[lex_order([sample], ones)]  # invalid (+inf) sort last
+    t = qarr * torch.clamp(nval - 1, min=0).to(torch.float32)
+    lo, hi = torch.floor(t).to(torch.int64), torch.ceil(t).to(torch.int64)
+    last = sample.shape[0] - 1
+    vlo = sample[torch.clamp(lo, 0, last)]
+    vhi = sample[torch.clamp(hi, 0, last)]
+    out = vlo + (t - lo.to(torch.float32)) * (vhi - vlo)
+    return torch.where(nval > 0, out, float("nan"))
+
+
+def _quantile_exact(cols, counts, column, qarr, sort_ov):
+    """Order statistics off a range layout sorted ascending on ``column``:
+    rank → shard arithmetic and one masked all-reduce per boundary."""
+    vals, nns = [], []
+    for c, count in zip(cols, counts):
+        col = c[column].to(torch.float32)
+        vals.append(col)
+        nns.append((_mask_for(count, col.shape[0])
+                    & ~torch.isnan(col)).sum(dtype=torch.int32))
+    nn_all = allgather(nns)
+    offsets = torch.cumsum(nn_all, 0) - nn_all
+    total = nn_all.sum()
+    t = qarr * torch.clamp(total - 1, min=0).to(torch.float32)
+    lo, hi = torch.floor(t).to(torch.int64), torch.ceil(t).to(torch.int64)
+
+    def fetch(g):  # global rank → value, via one masked all-reduce
+        parts = []
+        for s, col in enumerate(vals):
+            local = g - offsets[s]
+            have = (local >= 0) & (local < nns[s])
+            parts.append(torch.where(
+                have, col[torch.clamp(local, 0, col.shape[0] - 1)], 0.0))
+        return allreduce(parts)
+
+    vlo, vhi = fetch(lo), fetch(hi)
+    out = vlo + (t - lo.to(torch.float32)) * (vhi - vlo)
+    # a skew-overflowed internal sort dropped rows: poison, never mislead
+    return torch.where((total > 0) & (allreduce(sort_ov) == 0), out,
+                       float("nan"))
+
+
+@operator("table.quantile", Abstraction.TABLE)
+def quantile(dt: DistTable, column: str, qs, *, ctx: HPTMTContext,
+             method: str = "auto", bucket_factor: float = 2.0,
+             n_samples: int = 64) -> torch.Tensor:
+    """Quantiles of one column, numpy ``nanquantile`` semantics (linear
+    interpolation, NaNs excluded): a ``(len(qs),)`` float32 tensor.
+
+    ``method="exact"`` reads the true order statistics off the range
+    layout: an input already sorted ascending on ``column`` costs no
+    exchange and no sort; otherwise one sample-sort exchange runs first.
+    ``method="approx"`` is the quantile of a pooled per-shard regular
+    sample, never an exchange.  ``"auto"`` picks exact when the layout is
+    already there (or on one shard), else approx.
+    """
+    if column not in dt.column_names:
+        raise ValueError(f"column= names unknown column {column!r}; "
+                         f"table has {sorted(dt.column_names)}")
+    if method not in ("auto", "exact", "approx"):
+        raise ValueError(f"unknown quantile method={method!r}; expected "
+                         f"'auto', 'exact' or 'approx'")
+    if np.isscalar(qs) and not isinstance(qs, (str, bytes)):
+        qs = (float(qs),)
+    else:
+        try:
+            qs = tuple(float(q) for q in qs)
+        except TypeError:
+            raise ValueError(f"qs={qs!r} must be a probability or a "
+                             f"sequence of probabilities") from None
+    bad = [q for q in qs if not 0.0 <= q <= 1.0]
+    if bad:
+        raise ValueError(f"qs= values {bad} outside [0, 1]")
+    n = ctx.n_shards
+    # a range layout whose FIRST key is this column ascending proves the
+    # global order the exact path reads ranks from
+    asc = partitioning_ascending(dt.partitioning)
+    sorted_on_col = (partitioning_kind(dt.partitioning) == "range"
+                     and partitioning_keys(dt.partitioning)[:1] == (column,)
+                     and bool(asc and asc[0]))
+    if method == "auto":
+        method = "exact" if (sorted_on_col or n == 1) else "approx"
+    if dt.capacity == 0:  # gathers on size-0 columns are ill-formed
+        return torch.full((len(qs),), float("nan"), device=dt.device)
+    qarr = torch.tensor(qs, dtype=torch.float32, device=dt.device)
+    cols, counts = dt.shards()
+    n_samples = min(n_samples, dt.capacity)
+    if method == "approx":
+        return _quantile_approx(cols, counts, column, qarr, n_samples)
+    sort_ov = [_zero(dt.device) for _ in cols]
+    if not sorted_on_col:
+        cols, counts, sort_ov = range_shuffle(
+            cols, counts, (column,), (True,), n,
+            _bucket_capacity(dt.capacity, n, bucket_factor), dt.capacity,
+            n_samples=n_samples)
+    return _quantile_exact(cols, counts, column, qarr, sort_ov)
 
 
 # ===========================================================================
@@ -453,7 +781,7 @@ def _local_groupby_sort(cols: Cols, count, *, keys, aggs, out_capacity):
     cap = _cap(cols)
     dev = count.device
     mask = _mask_for(count, cap)
-    order = _sort_order([cols[k] for k in keys], mask)
+    order = lex_order([cols[k] for k in keys], mask)
     sorted_cols = {k: v[order] for k, v in cols.items()}
     smask = mask[order]
 

@@ -5,10 +5,11 @@ DataFrame; operators run over the context's shards on its device (the
 card, unless the context says ``device="cpu"``).  ``to_numpy()`` /
 ``to_torch()`` are the bridges to array code (paper Figs 13/17 interop).
 
-This slice of the port carries the hash surface: construction, select,
-project, join, groupby, hash repartition, the set operators and scalar
-aggregates.  The out-of-core path (``spill=``) arrives later; only
-``spill=False`` is accepted.
+The port carries the hash surface (construction, select, project, join,
+groupby, hash repartition, the set operators, scalar aggregates) and the
+ordered surface (``sort_values``, range repartition, ``window(...).agg``,
+``rank``, ``topk``, ``quantile``).  The out-of-core path (``spill=``)
+arrives later; only ``spill=False`` is accepted.
 """
 from __future__ import annotations
 
@@ -103,13 +104,15 @@ class DataFrame:
     @property
     def partitioning(self):
         """The layout evidence tuple: ``(hash_keys, n_shards)`` after a
-        hash exchange, else None.  Operators on matching keys skip their
-        shuffle."""
+        hash exchange, ``("range", keys, ascending, n_shards)`` after an
+        orderby/range repartition, else None.  Hash layouts let
+        join/groupby/set ops on matching keys skip their shuffle; range
+        layouts let window/rank/quantile/orderby skip their sort."""
         return self._t.partitioning
 
     @property
     def partitioning_kind(self):
-        """``"hash"`` or ``None`` — the layout kind."""
+        """``"hash"``, ``"range"`` or ``None`` — the layout kind."""
         return partitioning_kind(self._t.partitioning)
 
     # -- relational operators (eager) ------------------------------------------
@@ -146,19 +149,17 @@ class DataFrame:
         return self._child(out)
 
     def repartition(self, keys: Sequence[str], mode: str = "hash",
-                    **kw) -> "DataFrame":
-        """Re-distribute rows so equal ``keys`` share a shard (Fig 2).
+                    ascending=True, **kw) -> "DataFrame":
+        """Re-distribute rows: ``mode="hash"`` co-locates equal ``keys`` on
+        a shard (Fig 2); ``mode="range"`` globally sorts by ``keys`` via
+        the sample-sort exchange — contiguous key ranges per shard,
+        locally sorted.
 
-        The result records its layout (see :attr:`partitioning`), so
-        chained operators on the same keys elide their shuffles.  A no-op
-        when the layout already holds.  ``mode="range"`` (the sample-sort
-        exchange) arrives with the ordered-analytics slice.
+        Either way the result records its layout (see
+        :attr:`partitioning`), so chained operators on the same keys elide
+        their shuffles.  A no-op when the layout already holds.
         """
-        if mode == "range":
-            raise NotImplementedError(
-                "repartition(mode='range') is not ported yet: it arrives "
-                "with the ordered-analytics slice of the PyTorch port")
-        if mode != "hash":
+        if mode not in ("hash", "range"):
             raise ValueError(f"unknown repartition mode={mode!r}; "
                              f"expected 'hash' or 'range'")
         keys = (keys,) if isinstance(keys, str) else tuple(keys)
@@ -166,9 +167,51 @@ class DataFrame:
         if missing:
             raise ValueError(f"keys= names unknown column(s) {missing}; "
                              f"table has {sorted(self.columns)}")
+        if mode == "range":
+            return self.sort_values(list(keys), ascending=ascending, **kw)
         out, ov = table_ops.shuffle(self._t, keys, ctx=self._ctx, **kw)
         self._check(ov, "shuffle")
         return self._child(out)
+
+    def sort_values(self, by, ascending=True, **kw) -> "DataFrame":
+        """Globally sort by one or more columns (multi-key sample sort;
+        per-key ``ascending``, NaNs always last)."""
+        out, ov = table_ops.orderby(self._t, by, ctx=self._ctx,
+                                    ascending=ascending, **kw)
+        self._check(ov, "orderby")
+        return self._child(out)
+
+    def window(self, partition_by, order_by, ascending=True) -> "Window":
+        """SQL-style window builder: ``df.window(["g"], ["t"]).agg([...],
+        rows=32)`` — see :meth:`Window.agg`."""
+        return Window(self, partition_by, order_by, ascending)
+
+    def rank(self, partition_by, order_by, ascending=True,
+             **kw) -> "DataFrame":
+        """Add ``rank`` and ``row_number`` columns per partition/order."""
+        out, ov = table_ops.rank(self._t, partition_by, order_by,
+                                 ctx=self._ctx, ascending=ascending, **kw)
+        self._check(ov, "rank")
+        return self._child(out)
+
+    def topk(self, by, k: int, largest: bool = True, **kw) -> "DataFrame":
+        """The global top-``k`` rows by ``by`` — per-shard candidates
+        tree-reduced over ppermute rounds, no global sort."""
+        return self._child(table_ops.topk(self._t, by, k, ctx=self._ctx,
+                                          largest=largest, **kw))
+
+    def quantile(self, column: str, qs, method: str = "auto", **kw):
+        """Quantiles of ``column`` (numpy ``nanquantile`` semantics).
+
+        Scalar ``qs`` returns a float; a sequence returns a numpy array.
+        ``method="exact"`` adds no exchange on a range-sorted input;
+        ``"approx"`` is the splitter-sample sketch.
+        """
+        out = table_ops.quantile(self._t, column, qs, ctx=self._ctx,
+                                 method=method, **kw)
+        arr = out.cpu().numpy()
+        scalar = np.isscalar(qs) and not isinstance(qs, (str, bytes))
+        return float(arr[0]) if scalar else arr
 
     def union(self, other: "DataFrame", **kw) -> "DataFrame":
         out, ov = table_ops.union(self._t, other._t, ctx=self._ctx, **kw)
@@ -214,3 +257,34 @@ class DataFrame:
             raise OverflowError(
                 f"{op}: {int(overflow)} rows overflowed static capacity — "
                 "re-run with a larger out_capacity/bucket_factor")
+
+
+class Window:
+    """Bound ``(partition_by, order_by)`` spec, built by
+    :meth:`DataFrame.window`; ``.agg(...)`` evaluates window functions."""
+
+    def __init__(self, df: DataFrame, partition_by, order_by, ascending):
+        self._df = df
+        self._partition_by = partition_by
+        self._order_by = order_by
+        self._ascending = ascending
+
+    def agg(self, aggs, rows: Optional[int] = None, *,
+            spill: object = False, **kw) -> DataFrame:
+        """Evaluate window aggregates; returns the DataFrame plus one
+        column per agg (rows never move or drop).
+
+        ``aggs`` entries: ``(col, op)`` with op in sum/mean/count/min/max
+        (over a trailing window of ``rows`` rows, or cumulative when
+        ``rows=None``), ``(col, "lag"/"lead", offset)``, and
+        ``(None, "row_number"/"rank")``.  Already-sorted inputs
+        (``sort_values`` on ``partition_by + order_by``) evaluate with no
+        data movement; a truncated window raises :class:`OverflowError`.
+        """
+        df = self._df
+        _spill_mode(spill)
+        out, ov = table_ops.window_aggregate(
+            df._t, self._partition_by, self._order_by, aggs,
+            ctx=df._ctx, rows=rows, ascending=self._ascending, **kw)
+        DataFrame._check(ov, "window")
+        return df._child(out)

@@ -49,6 +49,9 @@ SIGNATURES = {
     "hptmt_segment_sum_fused": [P, P, I64, INT, I64, P, P],
     # values, seg, n, num_segments, op (0 sum, 1 min, 2 max), out, stream
     "hptmt_segment_reduce": [P, P, I64, I64, INT, P, P],
+    # values, seg, n, lanes, window, op (0 sum, 1 min, 2 max), tile, pre,
+    # suf, carry_pre, carry_suf, out, stream
+    "hptmt_windowed_scan": [P, P, I64, INT, I64, INT, INT, P, P, P, P, P, P],
 }
 
 _LOCK = threading.Lock()

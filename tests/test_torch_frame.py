@@ -213,15 +213,19 @@ def test_later_slices_raise():
     df = DataFrame.from_dict(LEFT, CPU1)
     with pytest.raises(NotImplementedError, match="spill"):
         df.groupby(["g"], [("v", "sum")], spill="auto")
-    with pytest.raises(NotImplementedError, match="ordered-analytics"):
-        df.repartition(["k"], mode="range")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        df.join(df, ["k"], method="sort")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        table_ops.cartesian(df.table, df.table, ctx=CPU1)
 
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.dataframe\n"
             "import repro_torch.kernels.native\n"
-            "for p in ('hash_partition', 'hash_join', 'segment_reduce'):\n"
+            "import repro_torch.window\n"
+            "for p in ('hash_partition', 'hash_join', 'segment_reduce',\n"
+            "          'window_scan'):\n"
             "    for m in ('ref', 'kernel', 'ops'):\n"
             "        __import__(f'repro_torch.kernels.{p}.{m}')\n"
             "bad = [m for m in sys.modules if m == 'jax' or\n"

@@ -210,7 +210,7 @@ def test_join_float_keys_bitwise_identity():
 
 def test_sort_join_waits_for_later_slice():
     t = DistTable.from_numpy_blocks({"k": LEFT["k"]}, [400], device="cpu")
-    with pytest.raises(NotImplementedError, match="ordered-analytics"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         table_ops.join(t, t, ["k"], ctx=CPU1, method="sort")
-    with pytest.raises(NotImplementedError, match="ordered-analytics"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         table_ops.cartesian(t, t, ctx=CPU1)

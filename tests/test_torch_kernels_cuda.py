@@ -22,6 +22,8 @@ from repro_torch.kernels.hash_partition import kernel as hpk  # noqa: E402
 from repro_torch.kernels.hash_partition import ref as hpr  # noqa: E402
 from repro_torch.kernels.segment_reduce import kernel as srk  # noqa: E402
 from repro_torch.kernels.segment_reduce import ref as srr  # noqa: E402
+from repro_torch.kernels.window_scan import kernel as wsk  # noqa: E402
+from repro_torch.kernels.window_scan import ref as wsr  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(29)
@@ -104,3 +106,35 @@ def test_minmax_nan_propagation(dev):
     hi = srk.segment_reduce_cuda(v, s, 3, "max").cpu().numpy()
     np.testing.assert_array_equal(lo, [np.nan, 2.0, np.inf])
     np.testing.assert_array_equal(hi, [np.nan, 3.0, -np.inf])
+
+
+def _nan_equal(a, b):
+    """Equal values, NaN where the other has NaN (min/max are exact)."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("window", [1, 7, 64, 4096, 4097, 10_000])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_windowed_scan_kernel(dev, window, op):
+    n, lanes = 100_003, 2
+    flags = RNG.random(n) < 1 / 300
+    flags[0] = True
+    seg = np.maximum.accumulate(np.where(flags, np.arange(n), 0))
+    v = RNG.normal(size=(n, lanes)).astype(np.float32)
+    v[RNG.random((n, lanes)) < 1e-4] = np.nan
+    vt = torch.from_numpy(v).to(dev)
+    st = torch.from_numpy(seg.astype(np.int32)).to(dev)
+    got = wsk.windowed_scan_cuda(vt, st, window, op)
+    exp = wsr.windowed_scan(vt, st, window, op)
+    if op != "sum" or window <= wsk.TILE:
+        # min/max are exact; sums over windows up to a tile run the plain
+        # version's ladder and are bit-identical
+        assert _nan_equal(got, exp)
+        if op == "sum":
+            assert torch.equal(got.nan_to_num(7.0).view(torch.int32),
+                               exp.nan_to_num(7.0).view(torch.int32))
+    else:
+        scale = wsr.windowed_scan(vt.abs().nan_to_num(), st, window, "sum")
+        assert torch.equal(got.isnan(), exp.isnan())
+        ok = ~exp.isnan()
+        assert bool(((got - exp).abs()[ok] <= 1e-5 * scale[ok]).all())
