@@ -19,7 +19,13 @@ Phases (every failed check raises; nothing is caught):
    with random segment starts, for windows 1, 7, 32, 512, 4096 and 8192
    (no multiple of ``n`` but 1) and sum/min/max: min/max exact with NaN
    propagating, sums bit-exact up to the kernel's 4096-row tile and within
-   ``1e-5 * sum|v|`` over each window beyond it;
+   ``1e-5 * sum|v|`` over each window beyond it.  ``flash_attention``
+   runs the serving path's prefill shapes — phi3-mini q/k/v (8, 32, 1024,
+   96) in bfloat16 and float32, smollm's GQA (8, 15/5, 1024, 64), a
+   mixtral-like (1, 32/8, 8192, 128) with ``window=4096``, a decode-like
+   query at ``q_offset`` over a right-padded cache (``kv_len``) and a
+   ragged length of 1000 — against its plain version to 2e-4 (float32)
+   and 2e-2 (bfloat16), timed beside ``scaled_dot_product_attention``;
 3. main path, 1 shard, full size — ``DataFrame.from_dict`` of left = 2^25
    rows ``{k, g, v}`` and right = 2^23 rows ``{k, w}`` (the order of TPC-H
    SF10 ``lineitem`` against ``orders``), inner join on ``k``, a groupby on
@@ -45,14 +51,26 @@ Phases (every failed check raises; nothing is caught):
 7. the same chain on 4 virtual shards: exactly 2 exchanges (the two
    sorts), no sort and no exchange inside the windows or the exact
    quantile, zero overflow, every exact lane equal to phase 6's;
-8. summary — the script's seconds so far, the ``kernels`` JSON line, the
+8. serving, phi3-mini-3.8b at its full published width and depth (32
+   layers, d_model 3072, 32 heads of 96, vocab 32064, bfloat16), random
+   weights drawn on the card from ``--seed``: ``Engine.generate`` on 8
+   prompts of 1024 tokens, greedy, 64 new tokens (``max_len`` = 1096, the
+   launcher's rule).  The flash kernel must launch once per layer in the
+   prefill; the prefill's last-position logits must agree with the plain
+   attention path (``use_flash=False``) to 2e-2 of the largest logit,
+   and a float32 copy of the model must give identical greedy tokens on
+   both paths (batch 2, prompt 256, 16 tokens);
+9. the same for smollm-360m (GQA 15/5, tied embeddings), full size;
+10. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
-Wall times of phases 3-7 are medians of 3 runs after one checked warm-up
+Wall times of phases 3-9 are medians of 3 runs after one checked warm-up
 run; kernel launch counts are those of the checked runs.  ``--profile``
-adds one ``torch.profiler`` run of each of phases 3-7 (device busy share,
+adds one ``torch.profiler`` run of each of phases 3-9 (device busy share,
 top kernels; tables in ``chiprun_out/profile_*.txt``).
+Float32 matrix products run in full float32 (TF32 off, PyTorch's
+default, set here).
 """
 from __future__ import annotations
 
@@ -70,6 +88,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 LEFT_ROWS, RIGHT_ROWS = 1 << 25, 1 << 23
 GROUPS, G_OUT_CAP = 1024, 2048
@@ -85,6 +104,8 @@ CUM_AGGS = [("v", "sum"), ("v", "max")]
 TOPK = 1000
 QS = (0.01, 0.5, 0.99)
 WINDOWS = (1, 7, 32, 512, 4096, 8192)
+SERVE = {"batch": 8, "prompt": 1024, "gen": 64}
+SERVE_F32 = {"batch": 2, "prompt": 256, "gen": 16}
 
 
 def check(cond, what: str) -> None:
@@ -111,9 +132,9 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, nops: float = 0.0):
+def bound(nbytes: float, nops: float = 0.0, ops_per_s=FP32_OPS_PER_S):
     """Least time for the work on this card: ``(ms, "bytes"|"operations")``."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -242,11 +263,13 @@ class Launches:
         from repro_torch.kernels.hash_join import kernel as hjk
         from repro_torch.kernels.hash_partition import kernel as hpk
         from repro_torch.kernels.segment_reduce import kernel as srk
+        from repro_torch.kernels.flash_attention import kernel as fak
         from repro_torch.kernels.window_scan import kernel as wsk
         self.counters = {"hash_partition": hpk.LAUNCHES, "probe": hjk.LAUNCHES,
                          "segment_reduce_fused": srk.FUSED_LAUNCHES,
                          "segment_reduce": srk.LAUNCHES,
-                         "windowed_scan": wsk.LAUNCHES}
+                         "windowed_scan": wsk.LAUNCHES,
+                         "flash_attention": fak.LAUNCHES}
         self.exchanges = array_ops.EXCHANGES
         self.sorts = array_ops.SORTS
         self.total = dict.fromkeys(self.counters, 0)
@@ -503,6 +526,167 @@ def window_kernel_phase(dev):
     return row, cases
 
 
+# b, hq, hkv, sq, sk, d, dtype, causal, window, kv_len, q_offset: the
+# serving path's prefill shapes (the first is the kernels-line row)
+FLASH_CASES = [
+    ("phi3 prefill", 8, 32, 32, 1024, 1024, 96, "bfloat16", True, None,
+     None, 0),
+    ("phi3 prefill f32", 8, 32, 32, 1024, 1024, 96, "float32", True, None,
+     None, 0),
+    ("smollm prefill", 8, 15, 5, 1024, 1024, 64, "bfloat16", True, None,
+     None, 0),
+    ("mixtral-like window", 1, 32, 8, 8192, 8192, 128, "bfloat16", True,
+     4096, None, 0),
+    ("decode-like", 8, 32, 32, 1, 1096, 96, "float32", True, None, 1024,
+     1023),
+    ("ragged", 2, 8, 8, 1000, 1000, 96, "float32", True, None, None, 0),
+]
+
+
+def attn_pairs(sq, sk, causal, window, kv_len, q_offset) -> int:
+    """(query, key) pairs the masks allow, per batch-head: the work this
+    run's inputs need."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.full(sq, min(sk, sk if kv_len is None else kv_len) - 1)
+    if causal:
+        hi = np.minimum(hi, p)
+    lo = np.zeros(sq, np.int64) if window is None else p - window + 1
+    return int(np.clip(hi - np.maximum(lo, 0) + 1, 0, None).sum())
+
+
+def flash_kernel_phase(dev):
+    """``flash_attention`` against its plain version on the serving
+    shapes; returns the kernels-line row (phi3 prefill, bf16) and the
+    per-case rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention import ref as far
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases, row = [], None
+    for (name, b, hq, hkv, sq, sk, d, dtype, causal, window, kv_len,
+         q_offset) in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        # q/k/v as the model hands them over: (B, S, H, D) transposed
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(dt)
+        kv = torch.randn((b, sk, 2 * hkv, d), generator=gen, device=dev
+                         ).to(dt)
+        q, k, v = (q.transpose(1, 2), kv[:, :, :hkv].transpose(1, 2),
+                   kv[:, :, hkv:].transpose(1, 2))
+        kw = dict(causal=causal, window=window, kv_len=kv_len,
+                  q_offset=q_offset)
+        got = fak.flash_attention_cuda(q, k, v, **kw)
+        exp = far.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-4 if dtype == "float32" else 2e-2
+        err = (got.float() - exp.float()).abs()
+        check(bool((err <= tol + tol * exp.float().abs()).all()),
+              f"flash_attention {name}: max |err| {float(err.max())}")
+        check(got.dtype == dt and got.shape == exp.shape,
+              f"flash_attention {name}: dtype/shape")
+        del got, exp
+        ms = cuda_ms(lambda: fak.flash_attention_cuda(q, k, v, **kw))
+        plain = cuda_ms(lambda: far.flash_attention(q, k, v, **kw), reps=2)
+        pairs = b * hq * attn_pairs(sq, sk, causal, window, kv_len, q_offset)
+        nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * q.element_size()
+        b_ms, b_by = bound(nbytes, 4 * pairs * d, BF16_OPS_PER_S)
+        lib = None
+        if window is None and kv_len is None and q_offset == 0:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=hq != hkv))
+        case = dict(case=name, shape=f"q {tuple(q.shape)} k "
+                    f"{tuple(k.shape)} {dtype}", max_abs_err=float(err.max()),
+                    ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib)
+        cases.append(case)
+        if row is None:
+            row = dict(name="flash_attention", **{
+                k: case[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")})
+        del q, k, v, kv, err
+    torch.cuda.empty_cache()
+    return row, cases
+
+
+def set_use_flash(model, flag: bool) -> None:
+    """Switch the model's self-attention between the flash kernel and the
+    plain ``attend`` (the config every module reads)."""
+    import dataclasses
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = dataclasses.replace(m.cfg, use_flash=flag)
+
+
+def serve_phase(arch: str, dev, seed: int, launches, profile: bool):
+    """Serve ``arch`` at its full published size on the card; check the
+    flash launches, the plain path and float32 greedy tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = get_config(arch)
+    b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    rng = np.random.default_rng(seed + 2)
+    prompts = rng.integers(1, cfg.vocab_size, (b, s), dtype=np.int32)
+    model = LM(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    engine = Engine(model, ServeConfig(max_len=s + n + 8))
+
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    out = engine.generate(prompts, n)
+    counts, _ = launches.read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(out.shape == (b, n) and out.dtype == np.int32, f"{arch}: tokens")
+    check(((out >= 0) & (out < cfg.vocab_size)).all(), f"{arch}: token ids")
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"{arch}: flash launches {counts['flash_attention']} per prefill, "
+          f"expected {cfg.n_layers}")
+
+    def prefill():
+        logits, _ = engine.prefill(prompts)
+        torch.cuda.synchronize()
+        return logits
+
+    flash_logits = prefill()
+    check(bool(flash_logits.isfinite().all()), f"{arch}: finite logits")
+    set_use_flash(model, False)
+    plain_logits = prefill()
+    set_use_flash(model, True)
+    rel = float((flash_logits - plain_logits).abs().max()
+                / plain_logits.abs().max())
+    check(rel < 2e-2, f"{arch}: flash vs plain prefill logits rel {rel}")
+    del flash_logits, plain_logits
+
+    pre = timed_runs(prefill)
+    gen = timed_runs(lambda: engine.generate(prompts, n))
+    if profile:
+        profile_run(f"serve_{arch}", lambda: engine.generate(prompts, n))
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # float32: identical greedy tokens on the kernel and the plain path
+    f = SERVE_F32
+    model = LM(dataclasses.replace(cfg, dtype="float32"),
+               torch.Generator(device=dev).manual_seed(seed), dev)
+    engine = Engine(model, ServeConfig(max_len=f["prompt"] + f["gen"] + 8))
+    small = prompts[:f["batch"], :f["prompt"]]
+    toks = engine.generate(small, f["gen"])
+    set_use_flash(model, False)
+    plain_toks = engine.generate(small, f["gen"])
+    check(np.array_equal(toks, plain_toks),
+          f"{arch}: float32 greedy tokens differ between flash and plain")
+    del engine, model
+    torch.cuda.empty_cache()
+
+    pre_s, gen_s = statistics.median(pre), statistics.median(gen)
+    emit(f"serve_{arch}", launches=counts, batch=b, prompt=s, new_tokens=n,
+         prefill_ms=pre_s * 1e3, decode_ms_per_token=(gen_s - pre_s)
+         / (n - 1) * 1e3, generate_s=gen_s, tokens_per_s=b * n / gen_s,
+         prefill_runs_s=pre, generate_runs_s=gen, peak_gib=peak,
+         flash_vs_plain_rel=rel, f32_tokens_equal=True)
+
+
 def make_events(seed: int):
     rng = np.random.default_rng(seed + 1)
     return {"g": rng.integers(0, ITEMS, EVENTS, dtype=np.int32),
@@ -645,6 +829,8 @@ SOURCES = {
                        "src/repro/kernels/segment_reduce/kernel.py:80"),
     "windowed_scan": ("src/repro_torch/csrc/window_scan.cu",
                       "src/repro/kernels/window_scan/kernel.py:75"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:104"),
 }
 
 
@@ -660,7 +846,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one run of each of phases 3-7")
+                    help="also profile one run of each of phases 3-9")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -672,6 +858,8 @@ def main() -> int:
     from repro_torch.kernels import native
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
@@ -688,11 +876,14 @@ def main() -> int:
     # 2. kernels vs plain
     krows = kernel_phase(left, right, dev)
     wrow, wcases = window_kernel_phase(dev)
-    krows.append(wrow)
+    frow, fcases = flash_kernel_phase(dev)
+    krows += [wrow, frow]
     for r in krows:
         emit("kernel", **r)
     for c in wcases:
         emit("window_kernel", **c)
+    for c in fcases:
+        emit("flash_kernel", **c)
 
     launches = Launches()
     left_dev = {k: torch.from_numpy(v).to(dev) for k, v in left.items()}
@@ -801,7 +992,11 @@ def main() -> int:
     emit("ordered_4shards", launches=counts7, exchanges=ex7,
          median_s=statistics.median(runs7), runs_s=runs7, peak_gib=peak7)
 
-    # 8. summary
+    # 8./9. serving: phi3-mini-3.8b, then smollm-360m
+    for arch in ("phi3-mini-3.8b", "smollm-360m"):
+        serve_phase(arch, dev, args.seed, launches, args.profile)
+
+    # 10. summary
     kernels = []
     for r in krows:
         name = r["name"]

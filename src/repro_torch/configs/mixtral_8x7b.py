@@ -1,0 +1,13 @@
+"""Mixtral 8x7B — MoE 8 experts top-2, sliding-window attention.
+
+[arXiv:2401.04088; hf] 32L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=32000, window 4096, rope theta 1e6.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x7b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
+    vocab_size=32000,
+    n_experts=8, experts_per_token=2, window=4096, rope_theta=1e6,
+)

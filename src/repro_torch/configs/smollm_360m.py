@@ -1,0 +1,12 @@
+"""SmolLM 360M — small llama-architecture with aggressive GQA.
+
+[hf:HuggingFaceTB/SmolLM-360M] 32L d_model=960 15H (kv=5) d_ff=2560
+vocab=49152, tied embeddings.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m", family="dense",
+    n_layers=32, d_model=960, n_heads=15, n_kv_heads=5, d_ff=2560,
+    vocab_size=49152, tie_embeddings=True,
+)

@@ -1,0 +1,28 @@
+"""Public flash-attention entry point.
+
+A CUDA tensor runs the hand-written kernel, a CPU tensor the plain
+version (``ref.py``); nothing falls back from one to the other.  A head
+dim the kernel does not take raises on both devices, so the CPU never
+accepts a shape the card would refuse.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import native
+from . import kernel as _kernel
+from . import ref as _ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    kv_len: Optional[int] = None, q_offset: int = 0,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D) → (B, Hq, Sq, D)."""
+    _kernel.check_head_dim(q.shape[-1])
+    fn = (_kernel.flash_attention_cuda if native.on_cuda(q)
+          else _ref.flash_attention)
+    return fn(q, k, v, causal=causal, window=window, kv_len=kv_len,
+              q_offset=q_offset, sm_scale=sm_scale)

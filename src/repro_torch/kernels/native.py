@@ -9,9 +9,9 @@ reuse the library.  Nothing here runs at import time: this module imports
 on machines with no CUDA toolkit, where no kernel is ever launched.
 
 Conventions of the C entry points: every pointer and the stream are
-``c_void_p``, sizes are ``c_int64``, small integers ``c_int``, and each
-returns ``cudaGetLastError()`` so the wrapper can raise on a refused
-launch.
+``c_void_p``, sizes are ``c_int64``, small integers ``c_int``, scales
+``c_float``, and each returns ``cudaGetLastError()`` so the wrapper can
+raise on a refused launch.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 P = ctypes.c_void_p
 I64 = ctypes.c_int64
 INT = ctypes.c_int
+F32 = ctypes.c_float
 
 #: argtypes of every C entry point (each returns ``cudaError_t`` as int)
 SIGNATURES = {
@@ -52,6 +53,11 @@ SIGNATURES = {
     # values, seg, n, lanes, window, op (0 sum, 1 min, 2 max), tile, pre,
     # suf, carry_pre, carry_suf, out, stream
     "hptmt_windowed_scan": [P, P, I64, INT, I64, INT, INT, P, P, P, P, P, P],
+    # q, k, v, o, dtype (0 f32, 1 bf16), batch, hq, hkv, sq, sk, d, the
+    # (batch, head, seq) strides of q, k, v and o, causal, window (-1:
+    # none), kv_len, q_offset, sm_scale, stream
+    "hptmt_flash_attention": [P, P, P, P, INT, I64, I64, I64, I64, I64, INT,
+                              *[I64] * 12, INT, I64, I64, I64, F32, P],
 }
 
 _LOCK = threading.Lock()

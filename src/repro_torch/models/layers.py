@@ -1,0 +1,317 @@
+"""Core tensor-operator layers: norms, RoPE, GQA attention with a KV cache,
+SwiGLU MLP.
+
+Ports ``src/repro/models/layers.py`` without MLA.  Each block is an
+``nn.Module`` holding the reference's parameters under the reference's
+names and layouts (``x @ w`` with ``w`` stored ``(in, out)``), stored in
+the model's compute dtype: the reference keeps float32 parameters and casts
+them at every use (``params["wq"].astype(dt)``), which rounds the same way.
+
+Attention dispatch: in prefill the flash kernel
+(``repro_torch.kernels.flash_attention``) runs by default on the card —
+the CUDA kernel for CUDA tensors, its plain version for CPU tensors when a
+config asks for it (``use_flash=True``); decode and training use the plain
+masked-softmax :func:`attend`.  Caches are updated in place: the decode
+step writes the new K/V into the tensors the prefill built instead of
+copying the cache, and returns the same tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention import ops as flash_ops
+
+Cache = Dict[str, object]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def dense_param(shape, generator: torch.Generator, dtype: torch.dtype,
+                device: torch.device, fan_in: Optional[int] = None):
+    """Normal / sqrt(fan_in) in float32, stored in ``dtype`` (the
+    reference's ``_dense_init``; other random numbers from the seed)."""
+    fan_in = fan_in or shape[0]
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32) / math.sqrt(fan_in)
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rms_norm(scale: torch.Tensor, x: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with float32 *accumulation* of products taken in ``x``'s
+    dtype, as the reference reduces ``jnp.square(x)`` with ``dtype=f32``."""
+    dt = x.dtype
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True,
+                     dtype=torch.float32)
+    inv = torch.rsqrt(var + eps)
+    return (x * inv.to(dt)) * scale.to(dt)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return rms_norm(self.scale, x, eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10_000.0) -> torch.Tensor:
+    """x (..., S, D) with D even; positions (..., S) absolute indices.
+
+    The rotation runs in float32 (``x`` times the float32 tables promotes)
+    and the result is cast back to ``x``'s dtype.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# masked attention core (plain path; same semantics as the flash kernel)
+# ---------------------------------------------------------------------------
+def _mask_for_chunk(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """(S, L) visibility from absolute positions (kv_pos == -1 → empty)."""
+    qp = q_pos[:, None]
+    kp = kv_pos[None, :]
+    allow = kp >= 0
+    if causal:
+        allow = allow & (kp <= qp)
+    if window is not None:
+        allow = allow & ((qp - kp) < window)
+    return allow
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool = True,
+           window: Optional[int] = None) -> torch.Tensor:
+    """Masked softmax attention.
+
+    q (B,Hq,S,D); k,v (B,Hkv,L,Dv); q_pos (S,), kv_pos (L,) absolute
+    positions (-1 = empty cache slot).  KV heads are repeated up to Hq, as
+    in the reference.  The reference streams queries in chunks to bound
+    the XLA score tile; each row's arithmetic is the same unchunked.
+    """
+    hq, hkv = q.shape[1], k.shape[1]
+    scale = q.shape[-1] ** -0.5
+    if hkv != hq:
+        rep = hq // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    scores = torch.einsum("bhsd,bhld->bhsl", q.to(torch.float32), kf) * scale
+    allow = _mask_for_chunk(q_pos, kv_pos, causal, window)
+    scores = torch.where(allow, scores, -1e30)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = torch.where(allow, p, 0.0)
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bhsl,bhld->bhsd", p, vf) / torch.clamp(denom, min=1e-30)
+    return o.to(q.dtype)
+
+
+def _use_flash_kernel(cfg: ModelConfig, device: torch.device) -> bool:
+    """The flash kernel for self-attention: on the card by default, opt-in
+    on the CPU (its plain version; tests force it)."""
+    if cfg.use_flash is not None:
+        return cfg.use_flash
+    return device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# int8 KV quantization (halves the resident cache and its reads)
+# ---------------------------------------------------------------------------
+def kv_quantize(x: torch.Tensor):
+    """(B,H,L,D) → (int8 values, f32 per-vector scales (B,H,L,1))."""
+    xf = x.to(torch.float32)
+    scale = torch.amax(torch.abs(xf), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def _write_slots(buf: torch.Tensor, new: torch.Tensor, slot: int,
+                 dim: int) -> None:
+    """``buf[..., slot:slot+n, ...] = new`` in place along ``dim``, with the
+    start clamped so the update fits, as ``dynamic_update_slice`` does."""
+    n = new.shape[dim]
+    start = min(max(slot, 0), buf.shape[dim] - n)
+    buf.narrow(dim, start, n).copy_(new)
+
+
+def _build_prefill_cache(cfg: ModelConfig, k, v, positions,
+                         cache_len: int) -> Cache:
+    """Size a decode cache of ``cache_len`` slots from prefill K/V.
+
+    Sliding-window archs keep a ring of the last ``window`` entries; others
+    right-pad to the full decode length.  ``pos`` tracks the absolute
+    position per slot (-1 = empty) so decode masking is position-exact;
+    ``cursor`` (a Python int) is the next write slot.
+    """
+    b, hk, s, dh = k.shape
+    positions = positions.to(torch.int32)
+    if cfg.window is not None and cache_len <= cfg.window:
+        w = cache_len
+        if s >= w:
+            # last w entries, placed at slot = pos % w (ring order)
+            src = (s - w) + torch.remainder(
+                torch.arange(w, device=k.device) - s, w)
+            ck, cv = k[:, :, src], v[:, :, src]
+            cpos = positions[src]
+        else:
+            ck, cv, cpos = _pad_cache(k, v, positions, w)
+        cursor = s % w
+    else:
+        ck, cv, cpos = _pad_cache(k, v, positions, cache_len)
+        cursor = s
+    out: Cache = {"pos": cpos, "cursor": cursor}
+    if cfg.kv_quant:
+        out["k"], out["k_s"] = kv_quantize(ck)
+        out["v"], out["v_s"] = kv_quantize(cv)
+    else:
+        out["k"], out["v"] = ck, cv
+    return out
+
+
+def _pad_cache(k, v, positions, length: int):
+    """K/V right-padded with zeros to ``length`` slots, ``pos`` with -1."""
+    b, hk, s, dh = k.shape
+    ck = k.new_zeros((b, hk, length, dh))
+    cv = v.new_zeros((b, hk, length, dh))
+    cpos = torch.full((length,), -1, dtype=torch.int32, device=k.device)
+    ck[:, :, :s] = k
+    cv[:, :, :s] = v
+    cpos[:s] = positions
+    return ck, cv, cpos
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (SWA + KV cache; cross-attention not ported)
+# ---------------------------------------------------------------------------
+class Attention(nn.Module):
+    """Pre-norm causal GQA self-attention; ``forward`` returns
+    (residual_delta, new_cache)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.cfg = cfg
+        self.wq = dense_param((d, h * dh), generator, dtype, device)
+        self.wk = dense_param((d, hk * dh), generator, dtype, device)
+        self.wv = dense_param((d, hk * dh), generator, dtype, device)
+        self.wo = dense_param((h * dh, d), generator, dtype, device,
+                              fan_in=h * dh)
+        self.norm = RMSNorm(d, dtype, device)
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                mode: str = "train", cache: Optional[Cache] = None,
+                kv_source: Optional[torch.Tensor] = None,
+                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
+        if kv_source is not None:
+            raise NotImplementedError(
+                "cross-attention (kv_source) is not ported yet: "
+                "ROADMAP Queue 1 item 10e (encoder-decoder and VLM)")
+        cfg = self.cfg
+        b, s, d = x.shape
+        h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = x.dtype
+        xn = self.norm(x, cfg.norm_eps)
+
+        q = (xn @ self.wq.to(dt)).reshape(b, s, h, dh).transpose(1, 2)
+        k = (xn @ self.wk.to(dt)).reshape(b, s, hk, dh).transpose(1, 2)
+        v = (xn @ self.wv.to(dt)).reshape(b, s, hk, dh).transpose(1, 2)
+        q = rope(q, positions[None, None, :], cfg.rope_theta)
+        k = rope(k, positions[None, None, :], cfg.rope_theta)
+
+        new_cache = None
+        if mode == "decode":
+            # write into the ring/linear cache in place and attend over it
+            slot = cache["cursor"]
+            if cfg.kv_quant:
+                kq, ks = kv_quantize(k)
+                vq, vs = kv_quantize(v)
+                for name, new in (("k", kq), ("k_s", ks), ("v", vq),
+                                  ("v_s", vs)):
+                    _write_slots(cache[name], new, slot, 2)
+                ck = kv_dequantize(cache["k"], cache["k_s"], dt)
+                cv = kv_dequantize(cache["v"], cache["v_s"], dt)
+            else:
+                _write_slots(cache["k"], k, slot, 2)
+                _write_slots(cache["v"], v, slot, 2)
+                ck, cv = cache["k"], cache["v"]
+            _write_slots(cache["pos"], positions.to(torch.int32), slot, 0)
+            length = ck.shape[2]
+            new_cache = {**cache, "cursor": (slot + s) % length
+                         if cfg.window else slot + s}
+            o = attend(q, ck, cv, q_pos=positions, kv_pos=cache["pos"],
+                       window=cfg.window)
+        else:
+            if _use_flash_kernel(cfg, x.device) and (mode != "train"
+                                                     or cfg.use_flash):
+                # the flash kernel: native GQA, no KV repeat, no score tile
+                # in device memory; training keeps the plain path (the
+                # forward kernel has no backward)
+                o = flash_ops.flash_attention(q, k, v, window=cfg.window)
+            else:
+                o = attend(q, k, v, q_pos=positions, kv_pos=positions,
+                           window=cfg.window)
+            if mode == "prefill":
+                new_cache = _build_prefill_cache(cfg, k, v, positions,
+                                                 cache_len or k.shape[2])
+
+        y = o.transpose(1, 2).reshape(b, s, h * dh) @ self.wo.to(dt)
+        return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.eps = cfg.norm_eps
+        self.w_gate = dense_param((d, f), generator, dtype, device)
+        self.w_in = dense_param((d, f), generator, dtype, device)
+        self.w_out = dense_param((f, d), generator, dtype, device, fan_in=f)
+        self.norm = RMSNorm(d, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        xn = self.norm(x, self.eps)
+        g = torch.nn.functional.silu(xn @ self.w_gate.to(dt))
+        u = xn @ self.w_in.to(dt)
+        return (g * u) @ self.w_out.to(dt)

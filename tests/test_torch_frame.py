@@ -224,8 +224,10 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch, repro_torch.core, repro_torch.dataframe\n"
             "import repro_torch.kernels.native\n"
             "import repro_torch.window\n"
+            "import repro_torch.configs, repro_torch.models.params\n"
+            "import repro_torch.serve.engine, repro_torch.launch.serve\n"
             "for p in ('hash_partition', 'hash_join', 'segment_reduce',\n"
-            "          'window_scan'):\n"
+            "          'window_scan', 'flash_attention'):\n"
             "    for m in ('ref', 'kernel', 'ops'):\n"
             "        __import__(f'repro_torch.kernels.{p}.{m}')\n"
             "bad = [m for m in sys.modules if m == 'jax' or\n"

@@ -16,6 +16,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.table import as_tensor, hash_columns  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fao  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as far  # noqa: E402
 from repro_torch.kernels.hash_join import kernel as hjk  # noqa: E402
 from repro_torch.kernels.hash_join import ref as hjr  # noqa: E402
 from repro_torch.kernels.hash_partition import kernel as hpk  # noqa: E402
@@ -138,3 +141,113 @@ def test_windowed_scan_kernel(dev, window, op):
         assert torch.equal(got.isnan(), exp.isnan())
         ok = ~exp.isnan()
         assert bool(((got - exp).abs()[ok] <= 1e-5 * scale[ok]).all())
+
+
+# b, hq, hkv, sq, sk, d, causal, window, q_offset: the JAX package's
+# FLASH_CASES (tests/test_kernels.py), then the serving path's head dims
+# (96: phi3, 64 with 15/5 heads: smollm) and a ragged kv_len
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, 0),
+    (1, 8, 8, 100, 100, 32, True, None, 0),
+    (1, 4, 1, 64, 256, 64, False, None, 0),
+    (2, 2, 2, 1, 512, 64, True, None, 511),
+    (1, 4, 2, 256, 256, 64, True, 64, 0),
+    (1, 2, 2, 1, 384, 128, True, 128, 383),
+    (1, 1, 1, 16, 16, 128, True, None, 0),
+    (2, 4, 4, 200, 200, 96, True, None, 0),
+    (1, 15, 5, 130, 130, 64, True, None, 0),
+    (1, 3, 1, 70, 70, 8, True, 16, 0),
+]
+
+
+def _qkv(dev, b, hq, hkv, sq, sk, d, dtype):
+    q = torch.from_numpy(RNG.normal(size=(b, hq, sq, d))).to(dev, dtype)
+    k = torch.from_numpy(RNG.normal(size=(b, hkv, sk, d))).to(dev, dtype)
+    v = torch.from_numpy(RNG.normal(size=(b, hkv, sk, d))).to(dev, dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel(dev, case, dtype):
+    b, hq, hkv, sq, sk, d, causal, window, qoff = case
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(dev, b, hq, hkv, sq, sk, d, dt)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    before = fak.LAUNCHES.n
+    got = fao.flash_attention(q, k, v, **kw)
+    assert fak.LAUNCHES.n == before + 1
+    exp = far.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == exp.shape
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kv_len", [0, 50, 64, 1000])
+def test_flash_attention_kernel_kv_len(dev, kv_len):
+    q, k, v = _qkv(dev, 1, 2, 2, 8, 128, 64, torch.float32)
+    got = fak.flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
+    exp = far.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_kernel_strided_views(dev):
+    """The model's q/k/v are (B, S, H, D) → (B, H, S, D) transposes."""
+    b, s, hq, hkv, d = 2, 77, 6, 2, 40
+    x = torch.from_numpy(RNG.normal(size=(b, s, hq + 2 * hkv, d))).to(
+        dev, torch.bfloat16)
+    q = x[:, :, :hq].transpose(1, 2)
+    k = x[:, :, hq:hq + hkv].transpose(1, 2)
+    v = x[:, :, hq + hkv:].transpose(1, 2)
+    got = fak.flash_attention_cuda(q, k, v)
+    exp = far.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+    # the output's memory is (B, S, H, D): the inverse transpose is free
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("d", [4, 100, 136])
+def test_flash_attention_kernel_rejects_head_dim(dev, d):
+    q, k, v = _qkv(dev, 1, 1, 1, 4, 4, d, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fao.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("window", [None, 32])
+def test_model_prefill_and_decode_flash_vs_plain(dev, window):
+    """A reduced phi3 on the card, float32: the prefill through the flash
+    kernel against the plain ``attend`` path, then decode steps (plain on
+    both, from each path's cache) into the ring when windowed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.transformer import LM
+
+    cfg = dataclasses.replace(reduced_config(get_config("phi3-mini-3.8b")),
+                              dtype="float32", window=window)
+    out = {}
+    for flash in (True, False):
+        model = LM(dataclasses.replace(cfg, use_flash=flash),
+                   torch.Generator(device=dev).manual_seed(3), dev)
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 43), dtype=np.int32)).to(dev)
+        before = fak.LAUNCHES.n
+        with torch.inference_mode():
+            logits, cache = model(toks[:, :40], mode="prefill",
+                                  cache_len=32 if window else 48)
+            assert fak.LAUNCHES.n - before == (cfg.n_layers if flash else 0)
+            steps = [logits]
+            for pos in range(40, 43):
+                logits, cache = model(
+                    toks[:, pos:pos + 1], mode="decode", cache=cache,
+                    positions=torch.tensor([pos], dtype=torch.int32,
+                                           device=dev))
+                steps.append(logits)
+        out[flash] = [s.cpu().numpy() for s in steps]
+    for got, exp in zip(out[True], out[False]):
+        np.testing.assert_allclose(got, exp, rtol=1e-4, atol=1e-4)
