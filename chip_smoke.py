@@ -10,7 +10,10 @@ available or when the package is missing.
 Phases (every failed check raises; nothing is caught):
 
 1. build — compile the hand-written CUDA kernels (``src/repro_torch/csrc``,
-   ``nvcc`` for ``sm_90a``) and print the seconds it took;
+   ``nvcc`` for ``sm_90a``; ``ptxas -v`` for each) and print the seconds
+   it took and the count of ``HGMMA`` (wgmma) instructions in each kernel's
+   SASS (``cuobjdump -sass``), which must be non-zero for the tensor-core
+   flash kernel;
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it: exact for hash_partition, probe and
    min/max, counts exact, float sums to ``1e-5 * sum|v|`` per group; times
@@ -23,9 +26,11 @@ Phases (every failed check raises; nothing is caught):
    runs the serving path's prefill shapes — phi3-mini q/k/v (8, 32, 1024,
    96) in bfloat16 and float32, smollm's GQA (8, 15/5, 1024, 64), a
    mixtral-like (1, 32/8, 8192, 128) with ``window=4096``, a decode-like
-   query at ``q_offset`` over a right-padded cache (``kv_len``) and a
-   ragged length of 1000 — against its plain version to 2e-4 (float32)
-   and 2e-2 (bfloat16), timed beside ``scaled_dot_product_attention``;
+   query at ``q_offset`` over a right-padded cache (``kv_len``) in float32
+   and bfloat16, and a ragged length of 1000 — against its plain version
+   to 2e-4 (float32, the SIMT kernel) and 2e-2 (bfloat16, the tensor-core
+   kernel), each case naming the instance that ran (``impl``), timed
+   beside ``scaled_dot_product_attention``;
 3. main path, 1 shard, full size — ``DataFrame.from_dict`` of left = 2^25
    rows ``{k, g, v}`` and right = 2^23 rows ``{k, w}`` (the order of TPC-H
    SF10 ``lineitem`` against ``orders``), inner join on ``k``, a groupby on
@@ -56,10 +61,11 @@ Phases (every failed check raises; nothing is caught):
    weights drawn on the card from ``--seed``: ``Engine.generate`` on 8
    prompts of 1024 tokens, greedy, 64 new tokens (``max_len`` = 1096, the
    launcher's rule).  The flash kernel must launch once per layer in the
-   prefill; the prefill's last-position logits must agree with the plain
-   attention path (``use_flash=False``) to 2e-2 of the largest logit,
-   and a float32 copy of the model must give identical greedy tokens on
-   both paths (batch 2, prompt 256, 16 tokens);
+   prefill, every launch on the tensor-core instance; the prefill's
+   last-position logits must agree with the plain attention path
+   (``use_flash=False``) to 2e-2 of the largest logit, and a float32
+   copy of the model must give identical greedy tokens on both paths
+   (batch 2, prompt 256, 16 tokens);
 9. the same for smollm-360m (GQA 15/5, tied embeddings), full size;
 10. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
@@ -270,12 +276,13 @@ class Launches:
                          "segment_reduce": srk.LAUNCHES,
                          "windowed_scan": wsk.LAUNCHES,
                          "flash_attention": fak.LAUNCHES}
+        self.flash_instances = fak.INSTANCE_LAUNCHES
         self.exchanges = array_ops.EXCHANGES
         self.sorts = array_ops.SORTS
         self.total = dict.fromkeys(self.counters, 0)
 
     def reset(self):
-        for c in self.counters.values():
+        for c in (*self.counters.values(), *self.flash_instances.values()):
             c.reset()
         self.exchanges.reset()
         self.sorts.reset()
@@ -539,6 +546,8 @@ FLASH_CASES = [
      4096, None, 0),
     ("decode-like", 8, 32, 32, 1, 1096, 96, "float32", True, None, 1024,
      1023),
+    ("decode-like bf16", 8, 32, 32, 1, 1096, 96, "bfloat16", True, None,
+     1024, 1023),
     ("ragged", 2, 8, 8, 1000, 1000, 96, "float32", True, None, None, 0),
 ]
 
@@ -575,7 +584,11 @@ def flash_kernel_phase(dev):
                    kv[:, :, hkv:].transpose(1, 2))
         kw = dict(causal=causal, window=window, kv_len=kv_len,
                   q_offset=q_offset)
+        impl = fak.INSTANCES[dt]
+        before = fak.INSTANCE_LAUNCHES[impl].n
         got = fak.flash_attention_cuda(q, k, v, **kw)
+        check(fak.INSTANCE_LAUNCHES[impl].n == before + 1,
+              f"flash_attention {name}: ran the {impl} kernel")
         exp = far.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = 2e-4 if dtype == "float32" else 2e-2
@@ -589,20 +602,24 @@ def flash_kernel_phase(dev):
         plain = cuda_ms(lambda: far.flash_attention(q, k, v, **kw), reps=2)
         pairs = b * hq * attn_pairs(sq, sk, causal, window, kv_len, q_offset)
         nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * q.element_size()
-        b_ms, b_by = bound(nbytes, 4 * pairs * d, BF16_OPS_PER_S)
+        # each type at its own peak: bf16 on the tensor cores, float32 on
+        # the FMA units
+        b_ms, b_by = bound(nbytes, 4 * pairs * d, BF16_OPS_PER_S
+                           if dtype == "bfloat16" else FP32_OPS_PER_S)
         lib = None
         if window is None and kv_len is None and q_offset == 0:
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=hq != hkv))
-        case = dict(case=name, shape=f"q {tuple(q.shape)} k "
+        case = dict(case=name, impl=impl, shape=f"q {tuple(q.shape)} k "
                     f"{tuple(k.shape)} {dtype}", max_abs_err=float(err.max()),
                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib)
         cases.append(case)
         if row is None:
             row = dict(name="flash_attention", **{
-                k: case[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")})
+                k: case[k] for k in ("impl", "shape", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")})
         del q, k, v, kv, err
     torch.cuda.empty_cache()
     return row, cases
@@ -636,12 +653,16 @@ def serve_phase(arch: str, dev, seed: int, launches, profile: bool):
     launches.reset()
     out = engine.generate(prompts, n)
     counts, _ = launches.read()
+    instances = {k: c.n for k, c in launches.flash_instances.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(out.shape == (b, n) and out.dtype == np.int32, f"{arch}: tokens")
     check(((out >= 0) & (out < cfg.vocab_size)).all(), f"{arch}: token ids")
     check(counts["flash_attention"] == cfg.n_layers,
           f"{arch}: flash launches {counts['flash_attention']} per prefill, "
           f"expected {cfg.n_layers}")
+    check(instances == {"wgmma": cfg.n_layers, "simt": 0},
+          f"{arch}: bf16 prefill launches by instance {instances}, expected "
+          f"all {cfg.n_layers} on the tensor-core kernel")
 
     def prefill():
         logits, _ = engine.prefill(prompts)
@@ -680,7 +701,8 @@ def serve_phase(arch: str, dev, seed: int, launches, profile: bool):
     torch.cuda.empty_cache()
 
     pre_s, gen_s = statistics.median(pre), statistics.median(gen)
-    emit(f"serve_{arch}", launches=counts, batch=b, prompt=s, new_tokens=n,
+    emit(f"serve_{arch}", launches=counts, flash_instances=instances,
+         batch=b, prompt=s, new_tokens=n,
          prefill_ms=pre_s * 1e3, decode_ms_per_token=(gen_s - pre_s)
          / (n - 1) * 1e3, generate_s=gen_s, tokens_per_s=b * n / gen_s,
          prefill_runs_s=pre, generate_runs_s=gen, peak_gib=peak,
@@ -829,9 +851,26 @@ SOURCES = {
                        "src/repro/kernels/segment_reduce/kernel.py:80"),
     "windowed_scan": ("src/repro_torch/csrc/window_scan.cu",
                       "src/repro/kernels/window_scan/kernel.py:75"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention/kernel.py:104"),
 }
+
+
+def sass_hgmma(lib) -> dict:
+    """Count of ``HGMMA`` (wgmma) instructions in the SASS of each kernel
+    of the built library that has any."""
+    from repro_torch.kernels import native
+
+    r = subprocess.run([native.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"cuobjdump reads the kernels: {r.stderr}")
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and fn is not None:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def card_line() -> str:
@@ -867,8 +906,12 @@ def main() -> int:
     # 1. build
     t0 = time.perf_counter()
     native.library(verbose=True)
-    emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=native.build_seconds)
+    build_s, nvcc_s = time.perf_counter() - t0, native.build_seconds
+    hgmma = sass_hgmma(native.build())
+    sm90 = [f for f in hgmma if "flash_fwd_sm90" in f]
+    check(len(sm90) == 3, f"HGMMA in every tensor-core flash instance: "
+          f"{hgmma}")
+    emit("build", seconds=build_s, nvcc_seconds=nvcc_s, hgmma=hgmma)
 
     left, right, sets = make_data(args.seed)
     oracle = make_oracle(left, right)

@@ -1,20 +1,24 @@
-// Masked online-softmax attention forward (flash attention), GQA-native.
+// Masked online-softmax attention forward (flash attention) for float32,
+// on the 32-bit FMA units; GQA-native.
 //
 // Replaces the TPU kernel flash_attention_pallas
-// (src/repro/kernels/flash_attention/kernel.py).  The TPU kernel walks a
-// sequential grid over key blocks and carries the running max, sum and
-// accumulator in VMEM scratch between grid steps; here one CTA owns one
-// (batch*head, 64-query block) pair and loops over the key blocks itself,
-// keeping the running statistics in registers.
+// (src/repro/kernels/flash_attention/kernel.py, pallas_call at :134) for
+// float32 inputs.  bfloat16 inputs run the tensor-core kernel of
+// flash_attention_sm90.cu; float32 stays here because TF32 products would
+// not hold the float32 tolerance (2e-4) or the float32 greedy tokens.  The
+// TPU kernel walks a sequential grid over key blocks and carries the
+// running max, sum and accumulator in VMEM scratch between grid steps;
+// here one CTA owns one (batch*head, 64-query block) pair and loops over
+// the key blocks itself, keeping the running statistics in registers.
 //
 // What bounds it on an H100: at the serving shapes (S = 1024, D = 64..128)
 // the work is ~4*S*S/2*D operations per head against 4*S*D elements of
-// input and output, so the bf16 tensor-core rate, not memory, is the
-// bound.  This first kernel runs both products on the 32-bit FMA units
-// (no mma/wgmma), so it sits well above that bound; its design keeps the
-// score tile and the probabilities out of device memory (shared memory
-// only), reads every K/V tile once per query block, and skips key blocks
-// above the causal diagonal or outside the sliding window.
+// input and output, so the float32 rate (67 TFLOP/s outside the tensor
+// cores), not memory, is the bound.  Both products run on the FMA units;
+// the design keeps the score tile and the probabilities out of device
+// memory (shared memory only), reads every K/V tile once per query block,
+// and skips key blocks above the causal diagonal or outside the sliding
+// window.
 //
 // Semantics copied from the Pallas kernel:
 //   * initial running max -1e30, alpha = exp(m_prev - m_new), masked
@@ -24,15 +28,12 @@
 //     window;
 //   * GQA: query head h of batch b reads kv head h / (Hq / Hkv) of batch b
 //     (the TPU index map (bh // hq) * hkv + (bh % hq) // group);
-//   * accumulation in float32 whatever the input type; output in the
-//     input type.
+//   * accumulation in float32.
 // Inputs may be strided views (the last dimension must be contiguous):
 // the model passes q/k/v straight out of a (B, S, H, D) -> (B, H, S, D)
 // transpose, and the wrapper allocates the output so that the inverse
 // transpose back to (B, S, H*D) is free.
 #include "common.cuh"
-
-#include <cuda_bf16.h>
 
 namespace {
 
@@ -61,30 +62,20 @@ struct Args {
     float sm_scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16_rn(x);
-}
-
-// Stage rows [row0, row0 + 64) of one head into shared memory as float32
-// with row stride ld; rows at or past n are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int64_t ss, int64_t row0,
-                                          int64_t n, int d) {
+// Stage rows [row0, row0 + 64) of one head into shared memory with row
+// stride ld; rows at or past n are zero.
+__device__ __forceinline__ void load_tile(float* dst, int ld,
+                                          const float* src, int64_t ss,
+                                          int64_t row0, int64_t n, int d) {
     for (int e = threadIdx.x; e < kBQ * d; e += kThreads) {
         const int r = e / d, c = e - r * d;
         const int64_t row = row0 + r;
-        dst[r * ld + c] = row < n ? to_f(src[row * ss + c]) : 0.0f;
+        dst[r * ld + c] = row < n ? src[row * ss + c] : 0.0f;
     }
 }
 
 // DC = ceil(D / 16): output columns held by each thread.
-template <typename T, int DC>
+template <int DC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(Args a) {
     extern __shared__ float smem[];
@@ -104,10 +95,13 @@ flash_fwd(Args a) {
     const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * kBQ;
     const int64_t qpos0 = a.q_offset + q0;
 
-    const T* q = static_cast<const T*>(a.q) + b * a.qv.sb + h * a.qv.sh;
-    const T* k = static_cast<const T*>(a.k) + b * a.kv.sb + hk * a.kv.sh;
-    const T* v = static_cast<const T*>(a.v) + b * a.vv.sb + hk * a.vv.sh;
-    T* o = static_cast<T*>(a.o) + b * a.ov.sb + h * a.ov.sh;
+    const float* q = static_cast<const float*>(a.q) + b * a.qv.sb +
+                     h * a.qv.sh;
+    const float* k = static_cast<const float*>(a.k) + b * a.kv.sb +
+                     hk * a.kv.sh;
+    const float* v = static_cast<const float*>(a.v) + b * a.vv.sb +
+                     hk * a.vv.sh;
+    float* o = static_cast<float*>(a.o) + b * a.ov.sb + h * a.ov.sh;
 
     const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
     load_tile(sq, ldq, q, a.qv.ss, q0, a.sq, d);
@@ -212,8 +206,7 @@ flash_fwd(Args a) {
         for (int c = 0; c < DC; ++c) {
             const int col = tx + 16 * c;
             if (col < d)
-                store(o + row * a.ov.ss + col,
-                      l[i] > 0.0f ? acc[i][c] * inv : 0.0f);
+                o[row * a.ov.ss + col] = l[i] > 0.0f ? acc[i][c] * inv : 0.0f;
         }
     }
 }
@@ -223,29 +216,28 @@ int smem_bytes(int d) {
            (kBQ * (d + 1) + kBK * (d + 1) + kBK * d + kBQ * kLDP);
 }
 
-template <typename T, int DC>
+template <int DC>
 cudaError_t launch(const Args& a, int64_t bh, cudaStream_t stream) {
     const int bytes = smem_bytes(a.d);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_fwd<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>(bh),
                     static_cast<unsigned>((a.sq + kBQ - 1) / kBQ));
-    flash_fwd<T, DC><<<grid, kThreads, bytes, stream>>>(a);
+    flash_fwd<DC><<<grid, kThreads, bytes, stream>>>(a);
     return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Args& a, int64_t bh, cudaStream_t stream) {
     switch ((a.d + 15) / 16) {
-        case 1: return launch<T, 1>(a, bh, stream);
-        case 2: return launch<T, 2>(a, bh, stream);
-        case 3: return launch<T, 3>(a, bh, stream);
-        case 4: return launch<T, 4>(a, bh, stream);
-        case 5: return launch<T, 5>(a, bh, stream);
-        case 6: return launch<T, 6>(a, bh, stream);
-        case 7: return launch<T, 7>(a, bh, stream);
-        case 8: return launch<T, 8>(a, bh, stream);
+        case 1: return launch<1>(a, bh, stream);
+        case 2: return launch<2>(a, bh, stream);
+        case 3: return launch<3>(a, bh, stream);
+        case 4: return launch<4>(a, bh, stream);
+        case 5: return launch<5>(a, bh, stream);
+        case 6: return launch<6>(a, bh, stream);
+        case 7: return launch<7>(a, bh, stream);
+        case 8: return launch<8>(a, bh, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -254,15 +246,15 @@ cudaError_t dispatch(const Args& a, int64_t bh, cudaStream_t stream) {
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), o (B, Hq, Sq, D), each given by
 // its element strides of (batch, head, sequence); the last dimension is
-// contiguous.  dtype: 0 float32, 1 bfloat16.  window < 0 means none;
+// contiguous; float32 only.  window < 0 means none;
 // kv_len <= Sk.  The wrapper checks D (a multiple of 8, at most 128),
 // Hq % Hkv == 0 and the grid limits.
 HPTMT_API int hptmt_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype,
-    int64_t batch, int64_t hq, int64_t hkv, int64_t sq, int64_t sk, int d,
-    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
-    int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
-    int64_t o_sh, int64_t o_ss, int causal, int64_t window, int64_t kv_len,
+    const void* q, const void* k, const void* v, void* o, int64_t batch,
+    int64_t hq, int64_t hkv, int64_t sq, int64_t sk, int d, int64_t q_sb,
+    int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+    int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
+    int64_t o_ss, int causal, int64_t window, int64_t kv_len,
     int64_t q_offset, float sm_scale, void* stream) {
     if (batch * hq == 0 || sq == 0) return cudaSuccess;
     Args a{q, k, v, o,
@@ -270,7 +262,5 @@ HPTMT_API int hptmt_flash_attention(
            {o_sb, o_sh, o_ss},
            hq, hkv, sq, sk, d, causal, window, kv_len, q_offset, sm_scale};
     auto s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = dtype == 0 ? dispatch<float>(a, batch * hq, s)
-                                 : dispatch<__nv_bfloat16>(a, batch * hq, s);
-    return static_cast<int>(err);
+    return static_cast<int>(dispatch(a, batch * hq, s));
 }

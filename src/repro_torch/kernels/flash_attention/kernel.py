@@ -1,14 +1,26 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the two CUDA flash-attention kernels.
 
-Replaces the TPU kernel ``flash_attention_pallas``
-(``src/repro/kernels/flash_attention/kernel.py``).  The TPU kernel carries
-the online-softmax state in VMEM scratch across a sequential key-block grid
-axis; here one CTA owns a (batch·head, 64-query block) pair and loops over
-the key blocks itself, and GQA reads kv head ``h // (Hq / Hkv)`` without
-repeating K/V.  The kernel reads strided views (only the head dimension
-must be contiguous), so the model's ``(B, S, H, D) → (B, H, S, D)``
-transposes reach it without a copy, and the output is allocated with
-``(B, Sq, Hq, D)`` memory so the model's inverse transpose is free.
+Replace the TPU kernel ``flash_attention_pallas``
+(``src/repro/kernels/flash_attention/kernel.py``).  The input dtype picks
+the kernel, and nothing else does:
+
+* bfloat16 → ``csrc/flash_attention_sm90.cu`` (instance ``"wgmma"``): both
+  products on the tensor cores (``wgmma``), K/V tiles brought by TMA, P
+  rounded to bfloat16 for the P·V product.
+* float32 → ``csrc/flash_attention.cu`` (instance ``"simt"``): both products
+  on the 32-bit FMA units, so float32 keeps its 2e-4 tolerance (TF32 would
+  not).
+
+The TPU kernel carries the online-softmax state in VMEM scratch across a
+sequential key-block grid axis; here one CTA owns a block of query rows
+of one (batch, head) and loops over the key blocks itself, and GQA reads
+kv head ``h // (Hq / Hkv)`` without repeating K/V.  Both kernels read
+strided views (only the head dimension must be contiguous), so the
+model's ``(B, S, H, D) → (B, H, S, D)`` transposes reach them without a
+copy, and the output is allocated with ``(B, Sq, Hq, D)`` memory so the
+model's inverse transpose is free.  TMA also needs a 16-byte-aligned base
+and strides that are multiples of 16 bytes; a bfloat16 view that breaks
+them is copied explicitly (``ALIGN_COPIES``), never read wrong.
 """
 from __future__ import annotations
 
@@ -19,14 +31,19 @@ import torch
 from ...core.array_ops import Counter
 from .. import native
 
-#: launches of the flash-attention kernel
+#: launches of either flash-attention kernel
 LAUNCHES = Counter()
+#: the kernel each dtype runs, and the launches of each
+INSTANCES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+INSTANCE_LAUNCHES = {"wgmma": Counter(), "simt": Counter()}
+_ENTRY = {"wgmma": "hptmt_flash_attention_sm90",
+          "simt": "hptmt_flash_attention"}
+#: bfloat16 views copied because TMA cannot read them in place
+ALIGN_COPIES = Counter()
 
-#: rows of one CTA's query block; must equal ``kBQ`` in the CUDA source
+#: rows of the smaller query block (``kBQ`` of the SIMT kernel)
 BLOCK_Q = 64
 MAX_D = 128
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def check_head_dim(d: int) -> None:
@@ -34,6 +51,19 @@ def check_head_dim(d: int) -> None:
     if d < 8 or d > MAX_D or d % 8:
         raise ValueError(f"flash attention kernel: head dim {d} must be a "
                          f"multiple of 8 in [8, {MAX_D}]")
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can read it in place (16-byte-aligned base,
+    the batch, head and sequence strides of dimensions longer than 1
+    multiples of 16 bytes), else a contiguous copy."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            st * size % 16 == 0
+            for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1):
+        return t
+    ALIGN_COPIES.add()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,7 +82,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree (batch, head dim, or Hq % Hkv != 0)")
     check_head_dim(d)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in INSTANCES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
                         "one of float32, bfloat16 for all three")
     dev = q.device
@@ -69,11 +99,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = -1 if window is None else int(window)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=dev).transpose(1, 2)
-    err = native.library().hptmt_flash_attention(
+    impl = INSTANCES[q.dtype]
+    if impl == "wgmma":
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
+    name = _ENTRY[impl]
+    err = getattr(native.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
+        b, hq, hkv, sq, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(bool(causal)), w, kv, int(q_offset), scale, native.stream(dev))
-    native.check("hptmt_flash_attention", err)
+    native.check(name, err)
     LAUNCHES.add()
+    INSTANCE_LAUNCHES[impl].add()
     return out

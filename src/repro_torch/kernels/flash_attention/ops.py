@@ -1,9 +1,16 @@
 """Public flash-attention entry point.
 
-A CUDA tensor runs the hand-written kernel, a CPU tensor the plain
-version (``ref.py``); nothing falls back from one to the other.  A head
-dim the kernel does not take raises on both devices, so the CPU never
-accepts a shape the card would refuse.
+The device and the dtype pick what runs, and nothing else does:
+
+* a bfloat16 CUDA tensor → the tensor-core kernel
+  (``csrc/flash_attention_sm90.cu``, wgmma fed by TMA);
+* a float32 CUDA tensor → the SIMT kernel (``csrc/flash_attention.cu``,
+  the 32-bit FMA units; float32 serves no other dtype);
+* a CPU tensor → the plain version (``ref.py``).
+
+Nothing falls back from one to another: a build or launch failure raises.
+A head dim the kernels do not take raises on both devices, so the CPU
+never accepts a shape the card would refuse.
 """
 from __future__ import annotations
 

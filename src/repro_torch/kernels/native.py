@@ -53,11 +53,14 @@ SIGNATURES = {
     # values, seg, n, lanes, window, op (0 sum, 1 min, 2 max), tile, pre,
     # suf, carry_pre, carry_suf, out, stream
     "hptmt_windowed_scan": [P, P, I64, INT, I64, INT, INT, P, P, P, P, P, P],
-    # q, k, v, o, dtype (0 f32, 1 bf16), batch, hq, hkv, sq, sk, d, the
-    # (batch, head, seq) strides of q, k, v and o, causal, window (-1:
-    # none), kv_len, q_offset, sm_scale, stream
-    "hptmt_flash_attention": [P, P, P, P, INT, I64, I64, I64, I64, I64, INT,
+    # q, k, v, o, batch, hq, hkv, sq, sk, d, the (batch, head, seq)
+    # strides of q, k, v and o, causal, window (-1: none), kv_len,
+    # q_offset, sm_scale, stream: float32 on the FMA units ...
+    "hptmt_flash_attention": [P, P, P, P, I64, I64, I64, I64, I64, INT,
                               *[I64] * 12, INT, I64, I64, I64, F32, P],
+    # ... and bfloat16 on the tensor cores (the same arguments)
+    "hptmt_flash_attention_sm90": [P, P, P, P, I64, I64, I64, I64, I64, INT,
+                                   *[I64] * 12, INT, I64, I64, I64, F32, P],
 }
 
 _LOCK = threading.Lock()
@@ -66,25 +69,26 @@ _LIB: Optional[ctypes.CDLL] = None
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
-                       "(set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{name} not found: the CUDA kernels cannot be "
+                       "built (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(csrc.iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -99,32 +103,34 @@ def _run(procs, verbose: bool) -> None:
             print(f"[nvcc {src.name}]\n{out}", flush=True)
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if the library for these sources is missing.
+def build(verbose: bool = False, csrc: Path = CSRC,
+          out: Path = BUILD) -> Path:
+    """Compile the kernels of ``csrc`` into ``out`` if the library for
+    these sources is missing.
 
     ``verbose`` prints what ``ptxas -v`` reports for each kernel
     (registers, shared memory, spills).
     """
     global build_seconds
-    lib = BUILD / f"libhptmt_{_digest()}.so"
+    lib = out / f"libhptmt_{_digest(csrc)}.so"
     if lib.exists():
         build_seconds = 0.0
         return lib
     t0 = time.perf_counter()
-    BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = cuda_tool()
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
         extra = ["-Xptxas", "-v"] if verbose else []
         procs = []
-        for src in _sources():
+        for src in _sources(csrc):
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *ARCH, *FLAGS, *extra, "-I", str(CSRC), "-c",
+            cmd = [nvcc, *ARCH, *FLAGS, *extra, "-I", str(csrc), "-c",
                    str(src), "-o", str(obj)]
             procs.append((src, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         _run(procs, verbose)
-        objs = [str(Path(tmp) / (s.stem + ".o")) for s in _sources()]
+        objs = [str(Path(tmp) / (s.stem + ".o")) for s in _sources(csrc)]
         part = Path(tmp) / lib.name
         link = subprocess.Popen([nvcc, *ARCH, "-shared", "-o", str(part),
                                  *objs], stdout=subprocess.PIPE,
@@ -135,19 +141,24 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Open a built library and bind the argtypes of its entry points."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.hptmt_error_string.argtypes = [ctypes.c_int]
+    lib.hptmt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build(verbose)))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.hptmt_error_string.argtypes = [ctypes.c_int]
-            lib.hptmt_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB = load(build(verbose))
         return _LIB
 
 

@@ -134,3 +134,148 @@ def test_kernel_wrapper_needs_cuda_tensors():
         fk.flash_attention_cuda(q, q, q)
     with pytest.raises(TypeError, match="dtype"):
         fk.flash_attention_cuda(q.half(), q.half(), q.half())
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 tensor-core kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+LOG2E = np.float32(1.4426950408889634)
+
+
+def emulate_wgmma_flash(q, k, v, *, causal=True, window=None, kv_len=None,
+                        q_offset=0, sm_scale=None):
+    """What ``csrc/flash_attention_sm90.cu`` computes, step for step: each
+    64-row warpgroup walks the 64-key blocks its CTA's 128 rows need in
+    ascending order and skips the blocks fully masked for its rows; S in
+    float32 from the bf16 inputs, scaled by ``sm_scale * log2(e)`` and
+    exponentiated with exp2; masked scores -1e30 and masked P exactly 0;
+    per tile, P enters P·V as three bf16 terms (``bf16(P)``, then the
+    rounded remainders) in three products summed afresh for the tile, and
+    ``O = alpha O + P·V`` in float32; the row sum ``l`` sums the float32 P;
+    O is scaled by ``1 / l`` (rows with ``l == 0`` write 0) and rounded to
+    bf16."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    kv = sk if kv_len is None else max(0, min(int(kv_len), sk))
+    scale = np.float32(d ** -0.5 if sm_scale is None else sm_scale) * LOG2E
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    out = torch.zeros((b, hkv, g, sq, d))
+    neg = torch.tensor(-1e30)
+    for q0 in range(0, sq, 128):                        # one CTA
+        last = q_offset + min(q0 + 127, sq - 1)
+        kb_hi = -(-kv // 64)
+        if causal:
+            kb_hi = 0 if last < 0 else min(kb_hi, last // 64 + 1)
+        first = q_offset + q0 - window + 1 if window is not None else 0
+        kb_lo = first // 64 if first > 0 else 0
+        for row0 in (q0, q0 + 64):                      # its two warpgroups
+            if row0 >= sq:
+                continue
+            rows = torch.arange(row0, min(row0 + 64, sq))
+            pos = q_offset + rows[:, None]
+            pmin, pmax = q_offset + row0, q_offset + int(rows[-1])
+            m = torch.full((b, hkv, g, rows.numel(), 1), -1e30)
+            l = torch.zeros_like(m)
+            o = torch.zeros((b, hkv, g, rows.numel(), d))
+            for kb in range(kb_lo, kb_hi):
+                k0 = kb * 64
+                if causal and k0 > pmax or (window is not None
+                                            and pmin - (k0 + 63) >= window):
+                    continue
+                cols = torch.arange(k0, min(k0 + 64, sk))
+                allow = (cols[None, :] < kv).repeat(rows.numel(), 1)
+                if causal:
+                    allow = allow & (cols[None, :] <= pos)
+                if window is not None:
+                    allow = allow & (pos - cols[None, :] < window)
+                s = qf[:, :, :, rows] @ kf[:, :, :, cols].transpose(-1, -2)
+                s = torch.where(allow, s * scale, neg)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                p = torch.where(allow, torch.exp2(s - m_new), 0.0)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                ot, rest = 0.0, p
+                for _ in range(3):
+                    part = rest.to(torch.bfloat16).float()
+                    ot = ot + part @ vf[:, :, :, cols]
+                    rest = rest - part
+                o = o * alpha + ot
+                m = m_new
+            inv = torch.where(l > 0, 1.0 / l.clamp(min=1e-30), 0.0)
+            out[:, :, :, rows] = torch.where(l > 0, o * inv, 0.0)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas", "port_ref"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_wgmma_emulation_vs_jax(case, oracle):
+    """The tensor-core kernel's arithmetic (P as three bf16 terms) holds
+    bf16's 2e-2 against the JAX reference, the Pallas kernel and the
+    port's plain version on the same cases as the plain version."""
+    b, hq, hkv, sq, sk, d, causal, window, qoff = case
+    jq, tq = _both((b, hq, sq, d), "bfloat16")
+    jk, tk = _both((b, hkv, sk, d), "bfloat16")
+    jv, tv = _both((b, hkv, sk, d), "bfloat16")
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    got = emulate_wgmma_flash(tq, tk, tv, **kw)
+    if oracle == "ref":
+        exp = jfr.flash_attention(jq, jk, jv, **kw)
+    elif oracle == "pallas":
+        exp = jfk.flash_attention_pallas(jq, jk, jv, interpret=True,
+                                         block_q=64, block_k=64, **kw)
+    else:
+        exp = fr.flash_attention(tq, tk, tv, **kw).float().numpy()
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(got, exp, 2e-2)
+
+
+@pytest.mark.parametrize("kv_len", [0, 50, 1000])
+def test_wgmma_emulation_kv_len_and_ragged_tiles(kv_len):
+    """kv_len masks, a length that fills no tile (77 queries, 1000 keys)
+    and GQA 3, against the JAX reference."""
+    jq, tq = _both((1, 6, 77, 40), "bfloat16")
+    jk, tk = _both((1, 2, 1000, 40), "bfloat16")
+    jv, tv = _both((1, 2, 1000, 40), "bfloat16")
+    kw = dict(causal=False, kv_len=kv_len)
+    got = emulate_wgmma_flash(tq, tk, tv, **kw)
+    _close(got, jfr.flash_attention(jq, jk, jv, **kw), 2e-2)
+    if kv_len == 0:
+        assert not got.float().any()
+
+
+def test_reduced_phi3_prefill_with_wgmma_emulation(monkeypatch):
+    """A bf16 phi3 prefill (phi3's head dim 96, 4 layers, a 200-token
+    prompt) with the tensor-core kernel's arithmetic in every layer
+    against the plain ``attend`` path: last-position logits within the
+    2e-2 of the largest logit that ``chip_smoke.py`` holds at full size."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.transformer import LM
+
+    cfg = dataclasses.replace(
+        reduced_config(get_config("phi3-mini-3.8b")), n_layers=4,
+        d_model=384, n_heads=4, n_kv_heads=4, d_head=96, d_ff=1024,
+        vocab_size=512, dtype="bfloat16")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 200), dtype=np.int32))
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return emulate_wgmma_flash(*a, **kw)
+
+    monkeypatch.setattr(fo, "flash_attention", counted)
+    logits = {}
+    for flash in (True, False):
+        model = LM(dataclasses.replace(cfg, use_flash=flash),
+                   torch.Generator().manual_seed(3), "cpu")
+        with torch.inference_mode():
+            out, _ = model(toks, mode="prefill", cache_len=200)
+        logits[flash] = out[:, -1].float()
+    assert len(calls) == cfg.n_layers
+    rel = float((logits[True] - logits[False]).abs().max()
+                / logits[False].abs().max())
+    assert torch.isfinite(logits[True]).all() and rel < 2e-2, rel

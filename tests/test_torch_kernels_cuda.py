@@ -9,6 +9,8 @@ The first test builds the kernels (``nvcc``, ``sm_90a``) and prints what
 ``ptxas -v`` reports.  Shapes are small; ``chip_smoke.py`` holds the
 kernels at the main path's full shapes.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -160,6 +162,18 @@ FLASH_CASES = [
 ]
 
 
+@contextlib.contextmanager
+def _ran(dtype, n=1):
+    """The block launches ``n`` flash kernels, all of the instance its
+    dtype picks: bfloat16 the tensor-core kernel, float32 the SIMT one."""
+    want = {"wgmma": 0, "simt": 0}
+    want[{torch.bfloat16: "wgmma", torch.float32: "simt"}[dtype]] = n
+    before = {k: c.n for k, c in fak.INSTANCE_LAUNCHES.items()}
+    yield
+    assert {k: c.n - before[k] for k, c in
+            fak.INSTANCE_LAUNCHES.items()} == want
+
+
 def _qkv(dev, b, hq, hkv, sq, sk, d, dtype):
     q = torch.from_numpy(RNG.normal(size=(b, hq, sq, d))).to(dev, dtype)
     k = torch.from_numpy(RNG.normal(size=(b, hkv, sk, d))).to(dev, dtype)
@@ -175,7 +189,8 @@ def test_flash_attention_kernel(dev, case, dtype):
     q, k, v = _qkv(dev, b, hq, hkv, sq, sk, d, dt)
     kw = dict(causal=causal, window=window, q_offset=qoff)
     before = fak.LAUNCHES.n
-    got = fao.flash_attention(q, k, v, **kw)
+    with _ran(dt):
+        got = fao.flash_attention(q, k, v, **kw)
     assert fak.LAUNCHES.n == before + 1
     exp = far.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -188,7 +203,8 @@ def test_flash_attention_kernel(dev, case, dtype):
 @pytest.mark.parametrize("kv_len", [0, 50, 64, 1000])
 def test_flash_attention_kernel_kv_len(dev, kv_len):
     q, k, v = _qkv(dev, 1, 2, 2, 8, 128, 64, torch.float32)
-    got = fak.flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
+    with _ran(torch.float32):
+        got = fak.flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
     exp = far.flash_attention(q, k, v, causal=False, kv_len=kv_len)
     np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
                                rtol=2e-4, atol=2e-4)
@@ -202,13 +218,85 @@ def test_flash_attention_kernel_strided_views(dev):
     q = x[:, :, :hq].transpose(1, 2)
     k = x[:, :, hq:hq + hkv].transpose(1, 2)
     v = x[:, :, hq + hkv:].transpose(1, 2)
-    got = fak.flash_attention_cuda(q, k, v)
+    copies = fak.ALIGN_COPIES.n
+    with _ran(torch.bfloat16):
+        got = fak.flash_attention_cuda(q, k, v)
+    assert fak.ALIGN_COPIES.n == copies  # TMA reads the views in place
     exp = far.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                exp.float().cpu().numpy(), rtol=2e-2,
                                atol=2e-2)
     # the output's memory is (B, S, H, D): the inverse transpose is free
     assert got.transpose(1, 2).is_contiguous()
+
+
+# b, hq, hkv, sq, sk, d, causal, window, kv_len, q_offset: the tensor-core
+# kernel's head dims (40 pads to 48 columns of 16, 96 and 128 take two TMA
+# boxes), GQA groups 1, 3 and 4, lengths that fill no tile, a window, a
+# right-padded cache and a decode query
+WGMMA_CASES = [
+    (2, 4, 4, 77, 77, 16, True, None, None, 0),
+    (1, 6, 2, 1000, 1000, 40, True, None, None, 0),
+    (1, 8, 2, 1024, 1024, 64, True, None, None, 0),
+    (1, 3, 1, 1024, 1024, 96, True, None, None, 0),
+    (1, 4, 1, 1000, 1000, 128, True, None, None, 0),
+    (1, 4, 4, 1024, 1024, 96, False, None, None, 0),
+    (1, 6, 2, 1000, 1000, 64, True, 200, None, 0),
+    (2, 4, 4, 1, 1096, 96, True, None, 1024, 1023),
+    (1, 8, 2, 1, 1024, 128, True, 256, None, 1023),
+    (1, 3, 1, 77, 1024, 64, False, None, 1000, 0),
+    (1, 4, 1, 1024, 1, 96, True, None, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_attention_wgmma_kernel(dev, case):
+    b, hq, hkv, sq, sk, d, causal, window, kv_len, qoff = case
+    q, k, v = _qkv(dev, b, hq, hkv, sq, sk, d, torch.bfloat16)
+    kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=qoff)
+    with _ran(torch.bfloat16):
+        got = fao.flash_attention(q, k, v, **kw)
+    exp = far.flash_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == exp.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("kv_len", [0, 50, 1000])
+def test_flash_attention_wgmma_kernel_kv_len(dev, kv_len):
+    q, k, v = _qkv(dev, 1, 4, 2, 77, 1024, 96, torch.bfloat16)
+    with _ran(torch.bfloat16):
+        got = fak.flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
+    exp = far.flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+    if kv_len == 0:
+        assert not got.float().any()
+
+
+@pytest.mark.parametrize("where", ["base", "stride"])
+def test_flash_attention_wgmma_kernel_misaligned_view_is_copied(dev, where):
+    """A view TMA cannot read in place (a base off 16 bytes, or a sequence
+    stride of 41 elements) is copied explicitly, never read wrong."""
+    b, h, s, d = 1, 2, 100, 40
+    if where == "base":
+        flat = torch.from_numpy(RNG.normal(size=b * h * s * d + 1)).to(
+            dev, torch.bfloat16)
+        q = flat[1:].view(b, h, s, d)
+    else:
+        q = torch.from_numpy(RNG.normal(size=(b, h, s, d + 1))).to(
+            dev, torch.bfloat16)[..., :d]
+    _, k, v = _qkv(dev, b, h, h, s, s, d, torch.bfloat16)
+    copies = fak.ALIGN_COPIES.n
+    with _ran(torch.bfloat16):
+        got = fak.flash_attention_cuda(q, k, v)
+    assert fak.ALIGN_COPIES.n == copies + 1
+    exp = far.flash_attention(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.parametrize("d", [4, 100, 136])
@@ -237,10 +325,12 @@ def test_model_prefill_and_decode_flash_vs_plain(dev, window):
         toks = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, 43), dtype=np.int32)).to(dev)
         before = fak.LAUNCHES.n
-        with torch.inference_mode():
+        with torch.inference_mode(), _ran(torch.float32,
+                                          cfg.n_layers if flash else 0):
             logits, cache = model(toks[:, :40], mode="prefill",
                                   cache_len=32 if window else 48)
-            assert fak.LAUNCHES.n - before == (cfg.n_layers if flash else 0)
+        assert fak.LAUNCHES.n - before == (cfg.n_layers if flash else 0)
+        with torch.inference_mode():
             steps = [logits]
             for pos in range(40, 43):
                 logits, cache = model(
