@@ -17,12 +17,17 @@ Phases (every failed check raises; nothing is caught):
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it: exact for hash_partition, probe and
    min/max, counts exact, float sums to ``1e-5 * sum|v|`` per group; times
-   with CUDA events beside the bytes bound and a library yardstick.
+   with CUDA events beside the bytes bound and a library yardstick.  The
+   probe walks the packed slot records (``slot_records``, timed as
+   ``pack_ms``) and is held against the reference's walk over its three
+   slot arrays; its row also counts the slot visits of the walk.
    ``windowed_scan`` runs on ``(2^25 - 3, 2)`` float32 values (a few NaN)
    with random segment starts, for windows 1, 7, 32, 512, 4096 and 8192
    (no multiple of ``n`` but 1) and sum/min/max: min/max exact with NaN
    propagating, sums bit-exact up to the kernel's 4096-row tile and within
-   ``1e-5 * sum|v|`` over each window beyond it.  ``flash_attention``
+   ``1e-5 * sum|v|`` over each window beyond it; then at ``rows=32`` on
+   column views of an ``(n, 4)`` table, as the window engine calls it
+   (``strided_ms``).  ``flash_attention``
    runs the serving path's prefill shapes — phi3-mini q/k/v (8, 32, 1024,
    96) in bfloat16 and float32, smollm's GQA (8, 15/5, 1024, 64), a
    mixtral-like (1, 32/8, 8192, 128) with ``window=4096``, a decode-like
@@ -335,19 +340,22 @@ def timed_runs(fn, runs: int = 3):
 
 
 def visited_slots(table_row, ph1, ph2, pvalid, max_probes):
-    """Distinct slots the probe walk reads (for the bytes bound)."""
+    """``(distinct, total)`` slots the probe walk visits: the distinct ones
+    price the bytes bound, the total is the slot reads a walk makes (one
+    sector each with the packed records)."""
     slots = table_row.shape[0]
     h1 = ph1.to(torch.int64) & 0xFFFFFFFF
     step = (ph2.to(torch.int64) & 0xFFFFFFFF) | 1
     seen = torch.zeros(slots, dtype=torch.bool, device=table_row.device)
     active = pvalid.clone()
-    j = 0
+    total, j = 0, 0
     while j < max_probes and bool(active.any()):
         slot = (h1 + j * step) & (slots - 1)
         seen[slot[active]] = True
+        total += int(active.sum())
         active &= table_row[slot] >= 0
         j += 1
-    return int(seen.sum())
+    return int(seen.sum()), total
 
 
 def kernel_phase(left, right, dev):
@@ -397,22 +405,29 @@ def kernel_phase(left, right, dev):
     check(int(unplaced) == 0, "build table placed every row")
     rlanes = key_compare_u32({"k": rk}, ["k"])
     llanes = key_compare_u32({"k": lk}, ["k"])
-    sh2, skeys = hjr.slot_payload(table, rh2, rlanes)
     pvalid = torch.ones_like(lk, dtype=torch.bool)
-    args = (table, sh2, skeys, lh1, lh2, llanes, pvalid, 1, 64)
-    got, exp = hjk.probe_cuda(*args), hjr.probe(*args)
+    records, side = hjr.slot_records(table, rh2, rlanes)
+    args = (records, side, lh1, lh2, llanes, pvalid, 1, 64)
+    got = hjk.probe_cuda(*args)
+    # the yardstick: the reference's walk over its three slot arrays
+    sh2, skeys = hjr.slot_payload(table, rh2, rlanes)
+    exp = hjr.probe(table, sh2, skeys, lh1, lh2, llanes, pvalid, 1, 64)
     for a, b in zip(got, exp):
         check(torch.equal(a, b), "probe bit-identical")
     check(bool((got[0] == 1).all()), "every probe row matched once")
+    del sh2, skeys, exp
     ms = cuda_ms(lambda: hjk.probe_cuda(*args))
-    plain = cuda_ms(lambda: hjr.probe(*args), reps=2)
+    pack = cuda_ms(lambda: hjr.slot_records(table, rh2, rlanes))
+    plain = cuda_ms(lambda: hjr.probe_records(*args), reps=2)
     n = LEFT_ROWS
-    seen = visited_slots(table, lh1, lh2, pvalid, 64)
+    seen, visits = visited_slots(table, lh1, lh2, pvalid, 64)
     b_ms, b_by = bound(n * (4 + 4 + 4 + 1) + n * (4 + 4 + 1) + seen * 12)
     rows.append(dict(name="probe", shape=f"N={n}, S={slots}, L=1, M=1",
                      max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None, slots_read=seen))
-    del got, exp, args, table, sh2, skeys
+                     bound_by=b_by, library_ms=None, pack_ms=pack,
+                     slots_read=seen, visits=visits,
+                     visits_per_row=visits / n))
+    del got, args, table, records, side
 
     # 3./4. segment reductions: the 1-shard hash groupby on g
     g = torch.from_numpy(left["g"]).to(dev)
@@ -524,12 +539,27 @@ def window_kernel_phase(dev):
         got = wsk.windowed_scan_cuda(nv, ns, 2, op)[:, 0].cpu().numpy()
         check(np.array_equal(got, np.array(want, np.float32), equal_nan=True),
               f"windowed_scan {op} NaN propagation: {got}")
+    # the window engine's call: sum lanes and a min/max column sliced out of
+    # one (n, 4) table, read through their row stride without a copy
+    table = torch.cat([v, torch.randn((n, 2), generator=gen, device=dev)], 1)
+    strided = {}
+    for op, view in (("sum", table[:, :lanes]), ("min", table[:, 2:3]),
+                     ("max", table[:, 3:4])):
+        got = wsk.windowed_scan_cuda(view, seg, ROLL, op)
+        exp = wsr.windowed_scan(view.contiguous(), seg, ROLL, op)
+        check(torch.equal(got.view(torch.int32), exp.view(torch.int32)),
+              f"windowed_scan strided {op}: bit-exact")
+        strided[op] = cuda_ms(lambda: wsk.windowed_scan_cuda(view, seg, ROLL,
+                                                             op))
+    del table, got, exp
     head = next(c for c in cases if c["window"] == ROLL and c["op"] == "sum")
     b_ms, b_by = bound(n * lanes * 4 * 2 + n * 4, 3 * n * lanes)
     row = dict(name="windowed_scan",
                shape=f"({n}, {lanes}) f32, w={ROLL}, sum",
                max_abs_err=worst, ms=head["ms"], plain_ms=head["plain_ms"],
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               strided_ms=strided,
+               one_lane_bound_ms=bound(n * 4 * 2 + n * 4, 3 * n)[0])
     return row, cases
 
 

@@ -535,10 +535,9 @@ def _local_hash_join(lcols: Cols, ln, rcols: Cols, rn, *, keys, how,
 
     slots = _hash_slots(rcap)
     table, n_unplaced = hjops.build_table(rh1, rh2, rmask, slots, max_probes)
-    slot_h2, slot_keys = hjops.slot_payload(table, rh2, rkeys)
-    cnt, rimat, exhausted = hjops.probe(table, slot_h2, slot_keys, lh1, lh2,
-                                        lkeys, lmask, max_matches,
-                                        max_probes)
+    records, side = hjops.slot_records(table, rh2, rkeys)
+    cnt, rimat, exhausted = hjops.probe(records, side, lh1, lh2, lkeys,
+                                        lmask, max_matches, max_probes)
 
     emit_n = torch.clamp(cnt, max=max_matches)
     if how in ("left", "outer"):
@@ -557,9 +556,9 @@ def _local_hash_join(lcols: Cols, ln, rcols: Cols, rn, *, keys, how,
         # matched, so capped pairs never resurface as unmatched rows
         lowner, _, l_unres = hjops.build_table_unique(
             lh1, lh2, lkeys, lmask, _hash_slots(lcap), max_probes)
-        lsh2, lskeys = hjops.slot_payload(lowner, lh2, lkeys)
-        rcnt, _, rexh = hjops.probe(lowner, lsh2, lskeys, rh1, rh2,
-                                    rkeys, rmask, 1, max_probes)
+        lrec, lside = hjops.slot_records(lowner, lh2, lkeys)
+        rcnt, _, rexh = hjops.probe(lrec, lside, rh1, rh2, rkeys, rmask, 1,
+                                    max_probes)
         tail = rmask & (rcnt == 0) & ~rexh
         tpos = torch.where(tail, total + torch.cumsum(tail, 0) - 1,
                            out_capacity)
@@ -1025,9 +1024,9 @@ def _membership_hash(a_cols: Cols, amask, ah1, ah2, b_cols: Cols, bmask,
     akeys = key_compare_u32(a_cols, names)
     owner, _, b_unres = hjops.build_table_unique(
         bh1, bh2, bkeys, bmask, _hash_slots(bh1.shape[0]), max_probes)
-    slot_h2, slot_keys = hjops.slot_payload(owner, bh2, bkeys)
-    cnt, _, exhausted = hjops.probe(owner, slot_h2, slot_keys, ah1, ah2,
-                                    akeys, amask, 1, max_probes)
+    records, side = hjops.slot_records(owner, bh2, bkeys)
+    cnt, _, exhausted = hjops.probe(records, side, ah1, ah2, akeys, amask, 1,
+                                    max_probes)
     found = amask & (cnt > 0)
     overflow = (b_unres.sum(dtype=torch.int32)
                 + exhausted.sum(dtype=torch.int32))

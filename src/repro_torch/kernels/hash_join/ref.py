@@ -28,13 +28,16 @@ batches of ``m = min(n, max(256, n // 8))`` lowest-index rows for at most
 probe chain order, and so which rows survive ``max_matches``.  The
 reference's ``while_loop``s are Python loops on ``.any()``.
 
-:func:`probe` is the plain version of the CUDA probe kernel
-(``csrc/probe.cu``); :func:`emit_lookup` turns its registers into packed
-``(probe row, build row)`` pairs.
+:func:`probe` walks the three slot arrays of the reference
+(:func:`slot_payload`) and stays the parity yardstick; the CUDA probe
+kernel (``csrc/probe.cu``) reads one packed record per slot instead
+(:func:`slot_records`), whose plain walk is :func:`probe_records`.
+:func:`emit_lookup` turns the registers into packed ``(probe row, build
+row)`` pairs.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -193,6 +196,72 @@ def slot_payload(table_row: torch.Tensor, bh2: torch.Tensor,
     keys = bkeys_u32[safe]
     slot_keys = torch.where(occ[:, None], keys, torch.zeros_like(keys))
     return slot_h2, slot_keys
+
+
+#: lanes a slot record carries inline; wider keys go to a side array
+RECORD_LANES = 2
+
+
+def slot_records(table_row: torch.Tensor, bh2: torch.Tensor,
+                 bkeys_u32: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The probe's slot table: one aligned record per slot.
+
+    Keys of up to :data:`RECORD_LANES` lanes give ``(slots, 4)`` int32
+    records ``{row, h2, k0, k1}`` (an absent lane is 0) and no side array;
+    wider keys give ``(slots, 2)`` records ``{row, h2}`` and the key lanes
+    in a slot-major ``(slots, L)`` side array.  An empty slot holds
+    ``{-1, 0, 0, ...}``, as :func:`slot_payload` zero-fills.
+
+    Each is one ``index_select`` over the slots, at ``table_row + 1``, from
+    a per-build-row record table whose first row is the empty record.  That
+    table is written field by field into planes, one contiguous write each,
+    then transposed in one copy; column writes into the interleaved table,
+    or ``torch.cat`` of its columns, run several times slower on the card.
+    The gather moves each 16- or 8-byte record as one complex128 or int64
+    element, bits unchanged: PyTorch gathers ``(rows, 4)`` int32 rows many
+    times slower, and advanced indexing (``x[table_row]``) slower than
+    ``index_select`` (``scripts/kernels_before_after.py``).  Side-array
+    lanes are gathered one plane at a time for the same reason.
+
+    Returns ``(records, side or None)``.
+    """
+    n, lanes = bkeys_u32.shape
+    dev = table_row.device
+    i32 = torch.int32
+    inline = lanes <= RECORD_LANES
+    planes = torch.empty((4 if inline else 2, n + 1), dtype=i32, device=dev)
+    planes[:, 0] = 0
+    planes[0, 0] = -1  # the empty record
+    torch.arange(n, dtype=i32, device=dev, out=planes[0, 1:])
+    planes[1, 1:] = bh2
+    if inline:
+        planes[2:2 + lanes, 1:] = bkeys_u32.t()
+        planes[2 + lanes:, 1:] = 0
+    at = table_row + 1  # row -1 (empty) → the empty record
+    carrier = torch.complex128 if inline else torch.int64
+    records = (planes.t().contiguous().view(carrier)[:, 0].index_select(0, at)
+               .view(i32).reshape(-1, planes.shape[0]))
+    if inline:
+        return records, None
+    keys = torch.empty((lanes, n + 1), dtype=i32, device=dev)
+    keys[:, 0] = 0
+    keys[:, 1:] = bkeys_u32.t()
+    side = torch.stack([k.index_select(0, at) for k in keys])
+    return records, side.t().contiguous()
+
+
+def probe_records(records: torch.Tensor, side: Optional[torch.Tensor],
+                  ph1: torch.Tensor, ph2: torch.Tensor,
+                  pkeys_u32: torch.Tensor, pvalid: torch.Tensor,
+                  max_matches: int = 1, max_probes: int = 64
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`probe` over :func:`slot_records`' layout (the plain version
+    of the CUDA kernel's inputs); the same outputs bit for bit."""
+    lanes = pkeys_u32.shape[1]
+    keys = records[:, 2:2 + lanes] if side is None else side
+    return probe(records[:, 0], records[:, 1], keys, ph1, ph2, pkeys_u32,
+                 pvalid, max_matches, max_probes)
 
 
 def probe(table_row: torch.Tensor, slot_h2: torch.Tensor,

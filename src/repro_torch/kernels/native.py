@@ -42,17 +42,17 @@ F32 = ctypes.c_float
 SIGNATURES = {
     # keys, n, k, valid, n_parts, dest, hist, h1, h2, stream
     "hptmt_hash_partition": [P, I64, INT, P, INT, P, P, P, P, P],
-    # table_row, slot_h2, slot_keys, slots, lanes, ph1, ph2, pkeys,
-    # pvalid, n, max_matches, max_probes, cnt, rimat, exhausted, stream
-    "hptmt_probe": [P, P, P, I64, INT, P, P, P, P, I64, INT, INT, P, P, P,
-                    P],
+    # records, side, slots, lanes, ph1, ph2, pkeys, pvalid, n,
+    # max_matches, max_probes, cnt, rimat, exhausted, stream
+    "hptmt_probe": [P, P, I64, INT, P, P, P, P, I64, INT, INT, P, P, P, P],
     # values, seg, n, lanes, num_segments, out, stream
     "hptmt_segment_sum_fused": [P, P, I64, INT, I64, P, P],
     # values, seg, n, num_segments, op (0 sum, 1 min, 2 max), out, stream
     "hptmt_segment_reduce": [P, P, I64, I64, INT, P, P],
-    # values, seg, n, lanes, window, op (0 sum, 1 min, 2 max), tile, pre,
-    # suf, carry_pre, carry_suf, out, stream
-    "hptmt_windowed_scan": [P, P, I64, INT, I64, INT, INT, P, P, P, P, P, P],
+    # values, row stride, seg, n, lanes, window, op (0 sum, 1 min, 2 max),
+    # tile, pre, suf, carry_pre, carry_suf, out, stream
+    "hptmt_windowed_scan": [P, I64, P, I64, INT, I64, INT, INT, P, P, P, P,
+                            P, P],
     # q, k, v, o, batch, hq, hkv, sq, sk, d, the (batch, head, seq)
     # strides of q, k, v and o, causal, window (-1: none), kv_len,
     # q_offset, sm_scale, stream: float32 on the FMA units ...

@@ -114,11 +114,15 @@ def test_probe_and_emit_bit_exact(kind, max_matches, max_probes):
                     max_probes)
     pallas = jhk.probe_pallas(jt, jsh2, jskeys, ph1, ph2, pl, pv,
                               max_matches, max_probes, interpret=True)
-    got = thops.probe(tt, tsh2, tskeys, qh1, qh2, ql, qv, max_matches,
+    yardstick = thr.probe(tt, tsh2, tskeys, qh1, qh2, ql, qv, max_matches,
+                          max_probes)
+    records, side = thops.slot_records(tt, th2, tl)
+    got = thops.probe(records, side, qh1, qh2, ql, qv, max_matches,
                       max_probes)
     for exp in (ref, pallas):
-        for g, e in zip(got, exp):
-            np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+        for port in (yardstick, got):
+            for g, e in zip(port, exp):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(e))
 
     cnt, rimat = got[0], got[1]
     emit_n = torch.where(qv, torch.clamp(cnt, 1, max_matches), 0)
@@ -131,6 +135,87 @@ def test_probe_and_emit_bit_exact(kind, max_matches, max_probes):
     tli, tri = thr.emit_lookup(rimat, base, emit_n, total, 700)
     np.testing.assert_array_equal(tli.numpy(), np.asarray(jli))
     np.testing.assert_array_equal(tri.numpy(), np.asarray(jri))
+
+
+def _hashed_lanes(lanes, n, kind, valid_p=0.9):
+    """Keys of ``lanes`` 32-bit lanes, one column a lane: int32 from a
+    small pool (duplicates), or float32 from KEY_POOL (±0.0, NaN)."""
+    if kind == "int":
+        cols = {f"c{i}": RNG.integers(0, 5, n).astype(np.int32)
+                for i in range(lanes)}
+    else:
+        cols = {f"f{i}": KEY_POOL[RNG.integers(0, 4 if i else 8, n)]
+                for i in range(lanes)}
+    names = sorted(cols)
+    jh1, jh2 = jhash([jnp.asarray(cols[k]) for k in names])
+    jl = jkey_lanes({k: jnp.asarray(v) for k, v in cols.items()}, names)
+    tcols = {k: as_tensor(v, "cpu") for k, v in cols.items()}
+    th1, th2 = hash_columns([tcols[k] for k in names])
+    tl = key_compare_u32(tcols, names)
+    assert tl.shape == (n, lanes)
+    np.testing.assert_array_equal(tl.numpy(), _i32(jl))
+    valid = RNG.random(n) < valid_p
+    return (jh1, jh2, jl, jnp.asarray(valid)), (th1, th2, tl,
+                                                torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("unique", [False, True])
+@pytest.mark.parametrize("max_matches,max_probes", [(1, 64), (8, 64),
+                                                    (8, 2)])
+def test_slot_records_and_packed_walk_bit_exact(lanes, kind, unique,
+                                                max_matches, max_probes):
+    """The packed slot records hold the reference's three slot arrays,
+    and the walk over them gives the JAX probe's outputs bit for bit —
+    join tables (duplicate keys, chain order) and unique-key tables (set-op
+    membership) at 1, 2 and 3 lanes, a starved ``max_probes`` included."""
+    (jh1, jh2, jl, jv), (th1, th2, tl, tv) = _hashed_lanes(lanes, 400, kind)
+    slots = 1024
+    if unique:
+        jt = jhr.build_table_unique(jh1, jh2, jl, jv, slots, 64)[0]
+        tt = thr.build_table_unique(th1, th2, tl, tv, slots, 64)[0]
+    else:
+        jt = jhr.build_table(jh1, jh2, jv, slots, 64)[0]
+        tt = thr.build_table(th1, th2, tv, slots, 64)[0]
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    jsh2, jskeys = jhr.slot_payload(jt, jh2, jl)
+    records, side = thops.slot_records(tt, th2, tl)
+    assert records.dtype == torch.int32
+    np.testing.assert_array_equal(records[:, 0].numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(records[:, 1].numpy(), _i32(jsh2))
+    if lanes <= thr.RECORD_LANES:
+        assert side is None and records.shape == (slots, 4)
+        keys = records[:, 2:2 + lanes]
+        assert not records[:, 2 + lanes:].any()
+    else:
+        assert records.shape == (slots, 2) and side.shape == (slots, lanes)
+        keys = side
+    np.testing.assert_array_equal(keys.numpy(), _i32(jskeys))
+
+    (ph1, ph2, pl, pv), (qh1, qh2, ql, qv) = _hashed_lanes(lanes, 300, kind)
+    exp = jhr.probe(jt, jsh2, jskeys, ph1, ph2, pl, pv, max_matches,
+                    max_probes)
+    got = thops.probe(records, side, qh1, qh2, ql, qv, max_matches,
+                      max_probes)
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    if not unique and max_probes == 64:
+        assert int(got[0].max()) > 1  # duplicate build keys chain up
+    if not unique and max_probes == 2:
+        assert bool(got[2].any())  # the starved walk leaves rows exhausted
+
+
+def test_probe_kernel_refuses_cpu_tensors():
+    """The kernel's wrapper raises on CPU records instead of falling back
+    to the plain walk."""
+    from repro_torch.kernels.hash_join import kernel as thk
+
+    _, (th1, th2, tl, tv) = _hashed_lanes(3, 64, "int")
+    tt, _ = thr.build_table(th1, th2, tv, 256, 64)
+    records, side = thops.slot_records(tt, th2, tl)
+    with pytest.raises(ValueError, match="CUDA"):
+        thk.probe_cuda(records, side, th1, th2, tl, tv)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.exchange import key_compare_u32  # noqa: E402
 from repro_torch.core.table import as_tensor, hash_columns  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
@@ -56,22 +57,103 @@ def test_hash_partition_kernel_bit_exact(dev, n_parts, n_keys):
     assert torch.equal(d, exp[0]) and torch.equal(h, exp[1])
 
 
+#: float key pool: NaN (equal bits match), -0.0 vs +0.0 (distinct)
+KEY_POOL = np.array([0.0, -0.0, 1.0, 2.0, np.nan, 7.25], np.float32)
+
+
+def _probe_keys(dev, kind, lanes, n, combos):
+    """``lanes`` key columns (one 32-bit lane each) over about ``combos``
+    distinct keys → hashes and lanes; float columns hold 1% of ±0.0, NaN
+    and other specials."""
+    pool = max(2, round(combos ** (1 / lanes)))
+    cols = [RNG.integers(0, pool, n).astype(np.int32) for _ in range(lanes)]
+    if kind == "float":
+        cols = [np.where(RNG.random(n) < 0.01,
+                         KEY_POOL[RNG.integers(0, len(KEY_POOL), n)],
+                         c.astype(np.float32)) for c in cols]
+    ts = [as_tensor(c, dev) for c in cols]
+    h1, h2 = hash_columns(ts)
+    keys = key_compare_u32({f"c{i}": t for i, t in enumerate(ts)},
+                           [f"c{i}" for i in range(lanes)])
+    return h1, h2, keys
+
+
+def _probe_both(table, bh2, bkeys, ph1, ph2, pkeys, pvalid, mm, mp):
+    """The kernel over the packed records and the reference's walk over its
+    three slot arrays, which must agree bit for bit."""
+    records, side = hjr.slot_records(table, bh2, bkeys)
+    assert (side is None) == (bkeys.shape[1] <= 2)
+    got = hjk.probe_cuda(records, side, ph1, ph2, pkeys, pvalid, mm, mp)
+    sh2, skeys = hjr.slot_payload(table, bh2, bkeys)
+    exp = hjr.probe(table, sh2, skeys, ph1, ph2, pkeys, pvalid, mm, mp)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    return got
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["int", "float"])
 @pytest.mark.parametrize("max_matches,max_probes", [(1, 64), (8, 64), (4, 3)])
-def test_probe_kernel_bit_exact(dev, max_matches, max_probes):
-    bk = as_tensor(RNG.integers(0, 5000, 20_000).astype(np.int32), dev)
-    pk = as_tensor(RNG.integers(0, 6000, 50_000).astype(np.int32), dev)
-    bh1, bh2 = hash_columns([bk])
-    ph1, ph2 = hash_columns([pk])
-    bvalid = torch.ones_like(bk, dtype=torch.bool)
+def test_probe_kernel_bit_exact(dev, lanes, kind, max_matches, max_probes):
+    """16-byte records (1-2 lanes) and 8-byte records with a side array (3
+    lanes); duplicate build keys; float keys with ±0.0 and NaN; a short
+    ``max_probes`` that leaves rows exhausted."""
+    bh1, bh2, bk = _probe_keys(dev, kind, lanes, 20_000, 5000)
+    ph1, ph2, pk = _probe_keys(dev, kind, lanes, 50_000, 6000)
+    bvalid = torch.ones(20_000, dtype=torch.bool, device=dev)
     pvalid = torch.from_numpy(RNG.random(50_000) < 0.95).to(dev)
     slots = 1 << 17
     table, _ = hjr.build_table(bh1, bh2, bvalid, slots, max_probes)
-    sh2, skeys = hjr.slot_payload(table, bh2, bk[:, None])
-    args = (table, sh2, skeys, ph1, ph2, pk[:, None], pvalid, max_matches,
-            max_probes)
-    got, exp = hjk.probe_cuda(*args), hjr.probe(*args)
+    cnt, _, exhausted = _probe_both(table, bh2, bk, ph1, ph2, pk, pvalid,
+                                    max_matches, max_probes)
+    if max_probes == 64:
+        assert int(cnt.max()) > max_matches  # more matches than registers
+    else:
+        assert bool(exhausted.any())
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+def test_probe_kernel_nearly_full_table(dev, lanes):
+    """1000 rows in 1024 slots: long chains that wrap past the table's
+    end, walks that hit max_probes, and a unique-key (set-op) table."""
+    bh1, bh2, bk = _probe_keys(dev, "int", lanes, 1000, 1 << 20)
+    ph1, ph2, pk = _probe_keys(dev, "int", lanes, 5000, 1 << 20)
+    ph1, ph2, pk = (torch.cat([bh1, ph1]), torch.cat([bh2, ph2]),
+                    torch.cat([bk, pk]))
+    pvalid = torch.ones(ph1.shape[0], dtype=torch.bool, device=dev)
+    bvalid = torch.ones(1000, dtype=torch.bool, device=dev)
+    table, failed = hjr.build_table(bh1, bh2, bvalid, 1024, 1024)
+    assert int(failed) == 0
+    for mp in (1024, 16):
+        cnt, _, exhausted = _probe_both(table, bh2, bk, ph1, ph2, pk, pvalid,
+                                        8, mp)
+        assert bool((cnt[:1000] >= 1).all()) or mp == 16
+        assert bool(exhausted.any()) == (mp == 16)
+    owner, _, _ = hjr.build_table_unique(bh1, bh2, bk, bvalid, 1024, 1024)
+    _probe_both(owner, bh2, bk, ph1, ph2, pk, pvalid, 1, 64)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_probe_kernel_misaligned_records(dev, lanes):
+    """Records in a contiguous view that starts off their vector width (16
+    or 8 bytes) are copied, not read misaligned."""
+    bh1, bh2, bk = _probe_keys(dev, "int", lanes, 2000, 1 << 20)
+    ph1, ph2, pk = _probe_keys(dev, "int", lanes, 5000, 1 << 20)
+    pk = torch.cat([bk, pk])
+    ph1, ph2 = torch.cat([bh1, ph1]), torch.cat([bh2, ph2])
+    pvalid = torch.ones(ph1.shape[0], dtype=torch.bool, device=dev)
+    table, _ = hjr.build_table(bh1, bh2, torch.ones_like(pvalid[:2000]),
+                               4096, 64)
+    records, side = hjr.slot_records(table, bh2, bk)
+    flat = torch.empty(records.numel() + 1, dtype=torch.int32, device=dev)
+    off = flat[1:].view(records.shape)  # 4 bytes past the vector width
+    off.copy_(records)
+    assert off.data_ptr() % (4 * records.shape[1])
+    got = hjk.probe_cuda(off, side, ph1, ph2, pk, pvalid, 2, 64)
+    exp = hjk.probe_cuda(records, side, ph1, ph2, pk, pvalid, 2, 64)
     for g, e in zip(got, exp):
         assert torch.equal(g, e)
+    assert bool((got[0][:2000] >= 1).all())
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
@@ -118,31 +200,61 @@ def _nan_equal(a, b):
     return bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
-@pytest.mark.parametrize("window", [1, 7, 64, 4096, 4097, 10_000])
-@pytest.mark.parametrize("op", ["sum", "min", "max"])
-def test_windowed_scan_kernel(dev, window, op):
-    n, lanes = 100_003, 2
+def _scan_inputs(dev, n, lanes):
     flags = RNG.random(n) < 1 / 300
     flags[0] = True
     seg = np.maximum.accumulate(np.where(flags, np.arange(n), 0))
     v = RNG.normal(size=(n, lanes)).astype(np.float32)
     v[RNG.random((n, lanes)) < 1e-4] = np.nan
-    vt = torch.from_numpy(v).to(dev)
-    st = torch.from_numpy(seg.astype(np.int32)).to(dev)
-    got = wsk.windowed_scan_cuda(vt, st, window, op)
-    exp = wsr.windowed_scan(vt, st, window, op)
+    v[3:7, 0] = [-0.0, 0.0, 0.0, -0.0]
+    return (torch.from_numpy(v).to(dev),
+            torch.from_numpy(seg.astype(np.int32)).to(dev))
+
+
+def _check_scan(got, exp, vt, st, window, op):
     if op != "sum" or window <= wsk.TILE:
         # min/max are exact; sums over windows up to a tile run the plain
         # version's ladder and are bit-identical
         assert _nan_equal(got, exp)
-        if op == "sum":
-            assert torch.equal(got.nan_to_num(7.0).view(torch.int32),
-                               exp.nan_to_num(7.0).view(torch.int32))
+        assert torch.equal(got.nan_to_num(7.0).view(torch.int32),
+                           exp.nan_to_num(7.0).view(torch.int32))
     else:
         scale = wsr.windowed_scan(vt.abs().nan_to_num(), st, window, "sum")
         assert torch.equal(got.isnan(), exp.isnan())
         ok = ~exp.isnan()
         assert bool(((got - exp).abs()[ok] <= 1e-5 * scale[ok]).all())
+
+
+@pytest.mark.parametrize("window", [1, 7, 31, 32, 33, 64, 3000, 4096, 4097,
+                                    10_000])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 5])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_windowed_scan_kernel(dev, window, lanes, op):
+    """Warp path (w <= 32), CTA tiles with a lead-in chunk (3000 tiles
+    unevenly), the three-pass carry path past the 4096-row tile; 1-5
+    lanes."""
+    vt, st = _scan_inputs(dev, 100_003, lanes)
+    got = wsk.windowed_scan_cuda(vt, st, window, op)
+    exp = wsr.windowed_scan(vt, st, window, op)
+    _check_scan(got, exp, vt, st, window, op)
+
+
+@pytest.mark.parametrize("window", [32, 33, 4096, 10_000])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_windowed_scan_kernel_strided_views(dev, window, op):
+    """The window engine's views — sum lanes ``ext[:, :n_sum]`` and a
+    min/max column ``ext[:, n_sum + i]`` of one table — read through their
+    row stride with no copy, the same bits as a contiguous input."""
+    table, st = _scan_inputs(dev, 70_001, 5)
+    view = table[:, :3] if op == "sum" else table[:, 3][:, None]
+    assert not view.is_contiguous()
+    got = wsk.windowed_scan_cuda(view, st, window, op)
+    dense = view.contiguous()
+    assert torch.equal(got.view(torch.int32),
+                       wsk.windowed_scan_cuda(dense, st, window, op)
+                       .view(torch.int32))
+    _check_scan(got, wsr.windowed_scan(dense, st, window, op), dense, st,
+                window, op)
 
 
 # b, hq, hkv, sq, sk, d, causal, window, q_offset: the JAX package's
