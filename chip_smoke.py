@@ -16,8 +16,12 @@ Phases (every failed check raises; nothing is caught):
    flash kernel;
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it: exact for hash_partition, probe and
-   min/max, counts exact, float sums to ``1e-5 * sum|v|`` per group; times
-   with CUDA events beside the bytes bound and a library yardstick.  The
+   min/max (bit for bit, ``-0.0`` below ``+0.0`` on mixed signed zeros, on
+   both segment paths), counts exact, float sums to ``1e-5 * sum|v|`` per
+   group; times with CUDA events beside the bytes bound and a library
+   yardstick.  The segment kernels also run at the sort groupby's shape
+   (sorted ids, ``S`` = 2^25, one lane: the ``direct`` path), one
+   ``segment_kernel`` line a shape and op with the path it took.  The
    probe walks the packed slot records (``slot_records``, timed as
    ``pack_ms``) and is held against the reference's walk over its three
    slot arrays; its row also counts the slot visits of the walk.
@@ -40,9 +44,11 @@ Phases (every failed check raises; nothing is caught):
    rows ``{k, g, v}`` and right = 2^23 rows ``{k, w}`` (the order of TPC-H
    SF10 ``lineitem`` against ``orders``), inner join on ``k``, a groupby on
    ``g`` (hash path, both segment kernels) and one on ``k`` (sort path),
-   checked against a numpy oracle; the exchange counter must read 0;
+   checked against a numpy oracle; the exchange counter must read 0; the
+   segment kernels' launches by path (``segment_paths``): the hash
+   groupby's on ``smem``, the sort groupby's sum ``direct``;
 4. the same data on 4 virtual shards (launches hash_partition): the same
-   rows, zero overflow, 3 exchanges;
+   rows, zero overflow, 3 exchanges, and the segment launches by path;
 5. set ops on 4 shards, 2^22 rows a side: union and difference against
    ``np.union1d`` / ``np.setdiff1d``;
 6. ordered analytics, 1 shard, full size — ``events`` = 2^25 rows ``{g:
@@ -282,15 +288,24 @@ class Launches:
                          "windowed_scan": wsk.LAUNCHES,
                          "flash_attention": fak.LAUNCHES}
         self.flash_instances = fak.INSTANCE_LAUNCHES
+        self.segment_paths = {"segment_reduce_fused": srk.FUSED_PATH_LAUNCHES,
+                              "segment_reduce": srk.PATH_LAUNCHES}
         self.exchanges = array_ops.EXCHANGES
         self.sorts = array_ops.SORTS
         self.total = dict.fromkeys(self.counters, 0)
 
     def reset(self):
-        for c in (*self.counters.values(), *self.flash_instances.values()):
+        paths = [c for p in self.segment_paths.values() for c in p.values()]
+        for c in (*self.counters.values(), *self.flash_instances.values(),
+                  *paths):
             c.reset()
         self.exchanges.reset()
         self.sorts.reset()
+
+    def paths(self):
+        """Segment-kernel launches by the path each took (smem/direct)."""
+        return {k: {p: c.n for p, c in v.items()}
+                for k, v in self.segment_paths.items()}
 
     def read(self):
         got = {k: c.n for k, c in self.counters.items()}
@@ -459,12 +474,44 @@ def kernel_phase(left, right, dev):
     rows.append(dict(name="segment_reduce_fused", shape=f"N={n}, L={L}, S={S}",
                      max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    cases = [dict(rows[-1], path=srk.path(S, L))]
+    check(cases[-1]["path"] == "smem", "the hash groupby's sum is privatized")
+
+    # the sort groupby on k: ids of the sorted join rows, S = its capacity
+    order = torch.argsort(lk, stable=True)
+    sk = lk[order]
+    new = torch.ones_like(sk, dtype=torch.bool)
+    new[1:] = sk[1:] != sk[:-1]
+    kseg = (torch.cumsum(new, 0, dtype=torch.int32) - 1).contiguous()
+    kvals = v[order][:, None].contiguous()
+    KS = LEFT_ROWS
+    got = srk.segment_reduce_fused_cuda(kvals, kseg, KS)
+    exp = srr.segment_reduce_fused(kvals, kseg, KS)
+    scale = srr.segment_reduce_fused(kvals.abs(), kseg, KS)
+    err = (got - exp).abs()
+    check(bool((err <= 1e-5 * scale).all()), "sorted-id sums within 1e-5 "
+          "sum|v|")
+    kseg64 = kseg.long()
+    b_ms, b_by = bound(n * 4 + n * 4 + KS * 4, n)
+    cases.append(dict(
+        name="segment_reduce_fused", path=srk.path(KS, 1),
+        shape=f"N={n}, L=1, S={KS}, sorted ids ({int(new.sum())} runs)",
+        max_abs_err=float(err.max()),
+        ms=cuda_ms(lambda: srk.segment_reduce_fused_cuda(kvals, kseg, KS)),
+        plain_ms=cuda_ms(lambda: srr.segment_reduce_fused(kvals, kseg, KS),
+                         reps=2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.zeros(KS, 1, device=dev).index_add_(
+            0, kseg64, kvals))))
+    check(cases[-1]["path"] == "direct", "the sort groupby's sum is direct")
+    del got, exp, scale, err, kseg64
 
     worst, ms_ops, plain_ops, lib_ops = 0.0, [], [], []
+    b_ms, b_by = bound(n * 4 + n * 4 + S * 4, n)
     for op in ("min", "max"):
         got = srk.segment_reduce_cuda(v, seg, S, op)
         exp = srr.segment_reduce(v, seg, S, op)
-        check(torch.equal(got, exp), f"segment {op} exact")
+        check(torch.equal(bit_key(got), bit_key(exp)), f"segment {op} exact")
         ms_ops.append(cuda_ms(lambda: srk.segment_reduce_cuda(v, seg, S, op)))
         plain_ops.append(cuda_ms(lambda: srr.segment_reduce(v, seg, S, op),
                                  reps=2))
@@ -472,6 +519,29 @@ def kernel_phase(left, right, dev):
         lib_ops.append(cuda_ms(lambda: torch.full((S,), init, device=dev)
                                .scatter_reduce_(0, seg64, v, "a" + op,
                                                 include_self=True)))
+        cases.append(dict(name="segment_reduce", path=srk.path(S, 1),
+                          shape=f"N={n}, S={S}, op={op}", max_abs_err=0.0,
+                          ms=ms_ops[-1], plain_ms=plain_ops[-1],
+                          bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib_ops[-1]))
+    # mixed +-0.0 on both paths, bit for bit: -0.0 is the min, +0.0 the max
+    # (a zero takes the sign of the row's v; groups with id % 7 == 0 hold
+    # only +0.0, == 3 only -0.0)
+    for ids, segs, sign in ((seg, S, v), (kseg, KS, kvals[:, 0])):
+        pos = torch.zeros(n, device=dev)
+        z = torch.where(sign < 0, -pos, pos)
+        z = torch.where(ids % 7 == 0, pos, torch.where(ids % 7 == 3, -pos, z))
+        for op in ("min", "max"):
+            got = srk.segment_reduce_cuda(z, ids, segs, op)
+            exp = srr.segment_reduce(z, ids, segs, op)
+            zero = exp == 0
+            check(bool(exp[zero].signbit().any())
+                  and not bool(exp[zero].signbit().all()),
+                  "both signs of zero among the results")
+            check(torch.equal(bit_key(got), bit_key(exp)),
+                  f"segment {op} on +-0.0, {srk.path(segs, 1)} path, "
+                  "bit for bit")
+    del kseg, kvals, order, sk, new
     # NaN propagates through min and max as in the reference
     nv = torch.tensor([1.0, float("nan"), 3.0, 2.0], device=dev)
     ns = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
@@ -479,12 +549,11 @@ def kernel_phase(left, right, dev):
     hi = srk.segment_reduce_cuda(nv, ns, 3, "max").cpu().numpy()
     check(np.array_equal(lo, [np.nan, 2, np.inf], equal_nan=True), "min NaN")
     check(np.array_equal(hi, [np.nan, 3, -np.inf], equal_nan=True), "max NaN")
-    b_ms, b_by = bound(n * 4 + n * 4 + S * 4, n)
     rows.append(dict(name="segment_reduce", shape=f"N={n}, S={S}, op=min/max",
                      max_abs_err=worst, ms=statistics.mean(ms_ops),
                      plain_ms=statistics.mean(plain_ops), bound_ms=b_ms,
                      bound_by=b_by, library_ms=statistics.mean(lib_ops)))
-    return rows
+    return rows, cases
 
 
 def window_kernel_phase(dev):
@@ -947,12 +1016,14 @@ def main() -> int:
     oracle = make_oracle(left, right)
 
     # 2. kernels vs plain
-    krows = kernel_phase(left, right, dev)
+    krows, scases = kernel_phase(left, right, dev)
     wrow, wcases = window_kernel_phase(dev)
     frow, fcases = flash_kernel_phase(dev)
     krows += [wrow, frow]
     for r in krows:
         emit("kernel", **r)
+    for c in scases:
+        emit("segment_kernel", **c)
     for c in wcases:
         emit("window_kernel", **c)
     for c in fcases:
@@ -967,7 +1038,12 @@ def main() -> int:
     launches.reset()
     res1 = main_path(DataFrame, ctx1, left, right, 1.0)
     counts3, ex3 = launches.read()
+    paths3 = launches.paths()
     check(ex3 == 0, f"1 shard exchanges: {ex3}")
+    check(paths3 == {"segment_reduce_fused": {"smem": 1, "direct": 1},
+                     "segment_reduce": {"smem": 2, "direct": 0}},
+          f"1 shard: the hash groupby on the smem path, the sort groupby's "
+          f"sum direct: {paths3}")
     j1, g1 = check_main_path(res1, left_dev, oracle, "1 shard")
     peak3 = torch.cuda.max_memory_allocated() / 2**30
     del res1
@@ -975,7 +1051,7 @@ def main() -> int:
     if args.profile:
         profile_run("main_1shard",
                     lambda: main_path(DataFrame, ctx1, left, right, 1.0))
-    emit("main_1shard", launches=counts3, exchanges=ex3,
+    emit("main_1shard", launches=counts3, segment_paths=paths3, exchanges=ex3,
          median_s=statistics.median(runs3), runs_s=runs3, peak_gib=peak3)
 
     # 4. the same data on 4 virtual shards
@@ -984,7 +1060,13 @@ def main() -> int:
     launches.reset()
     res4 = main_path(DataFrame, ctx4, left, right, 2.0)
     counts4, ex4 = launches.read()
+    paths4 = launches.paths()
     check(ex4 == 3, f"4 shard exchanges: {ex4} (join 2, groupby g 1, k 0)")
+    # groupby g: a partial pass a shard (32768 slots x 3 lanes: two lane
+    # chunks) and a merge a shard (8192 slots); groupby k: sort, direct
+    check(paths4 == {"segment_reduce_fused": {"smem": 8, "direct": 4},
+                     "segment_reduce": {"smem": 16, "direct": 0}},
+          f"4 shards: segment paths {paths4}")
     check(counts4["hash_partition"] > 0, "4 shards launch hash_partition")
     j4, g4 = check_main_path(res4, left_dev, oracle, "4 shards")
     check(torch.equal(canonical(j1, sorted(j1)), canonical(j4, sorted(j4))),
@@ -997,7 +1079,8 @@ def main() -> int:
     if args.profile:
         profile_run("main_4shards",
                     lambda: main_path(DataFrame, ctx4, left, right, 2.0))
-    emit("main_4shards", launches=counts4, exchanges=ex4,
+    emit("main_4shards", launches=counts4, segment_paths=paths4,
+         exchanges=ex4,
          median_s=statistics.median(runs4), runs_s=runs4, peak_gib=peak4)
 
     # 5. set ops, 4 shards

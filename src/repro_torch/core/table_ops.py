@@ -957,7 +957,14 @@ def groupby_aggregate(dt: DistTable, keys: Sequence[str],
 
 @operator("table.aggregate", Abstraction.TABLE)
 def aggregate(dt: DistTable, column: str, op: str, *, ctx: HPTMTContext):
-    """Global scalar aggregate of one column (Table III Aggregate)."""
+    """Global scalar aggregate of one column (Table III Aggregate).
+
+    min and max reduce as one segment of the segment reduction, per shard
+    and then across shards, so they order ``-0.0`` below ``+0.0`` and let
+    a NaN win, as ``jnp.min``/``jnp.max`` do.
+    """
+    from ..kernels.segment_reduce import ops as segops
+
     if op not in _SEGMENT_OPS:
         raise ValueError(f"unknown aggregate {op!r}")
     vals, rows = [], []
@@ -969,14 +976,14 @@ def aggregate(dt: DistTable, column: str, op: str, *, ctx: HPTMTContext):
             vals.append(torch.where(mask, col, 0.0).sum())
         elif op == "count":
             vals.append(rows[-1])
-        elif op == "min":
-            vals.append(torch.where(mask, col, float("inf")).min())
-        else:
-            vals.append(torch.where(mask, col, float("-inf")).max())
-    if op == "min":
-        return torch.stack(vals).min()
-    if op == "max":
-        return torch.stack(vals).max()
+        else:  # padding rows carry id -1, which the reduction drops
+            seg = torch.where(mask, 0, -1).to(torch.int32)
+            vals.append(segops.segment_reduce(col, seg, 1, op)[0])
+    if op in ("min", "max"):
+        v = torch.stack(vals)
+        return segops.segment_reduce(
+            v, torch.zeros(v.shape, dtype=torch.int32, device=v.device), 1,
+            op)[0]
     v = allreduce(vals)
     if op == "mean":
         v = v / torch.clamp(allreduce(rows), min=1.0)

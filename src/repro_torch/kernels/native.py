@@ -49,6 +49,8 @@ SIGNATURES = {
     "hptmt_segment_sum_fused": [P, P, I64, INT, I64, P, P],
     # values, seg, n, num_segments, op (0 sum, 1 min, 2 max), out, stream
     "hptmt_segment_reduce": [P, P, I64, I64, INT, P, P],
+    # num_segments, lanes → 1 for the shared-memory path, 0 for direct
+    "hptmt_segment_privatized": [I64, INT],
     # values, row stride, seg, n, lanes, window, op (0 sum, 1 min, 2 max),
     # tile, pre, suf, carry_pre, carry_suf, out, stream
     "hptmt_windowed_scan": [P, I64, P, I64, INT, I64, INT, INT, P, P, P, P,

@@ -2,12 +2,16 @@
 
 Replace the TPU kernels ``segment_reduce_fused_pallas`` and
 ``segment_reduce_pallas`` (``src/repro/kernels/segment_reduce/kernel.py``).
-The TPU kernels reduce one-hot tiles on the MXU (O(N * S) work); here one
-thread per (row, lane) adds into the output with an L2 atomic (O(N)
-work).  Both are memory-bound: values and ids are read once, the output
-written once.  Float sums come out in another order than the plain
-version's and agree to a tolerance; min/max are exact and propagate NaN
-(a compare-and-swap loop on the float bits).
+The TPU kernels reduce one-hot tiles on the MXU (O(N * S) work); here the
+work is O(N), by one of two paths that the C entry points choose by byte
+count: ``"smem"`` when one output lane of ``S`` float32 fits in a block's
+shared memory (per-CTA partials with shared-memory atomics, one global
+atomic an occupied entry at the end), else ``"direct"`` (one global atomic
+per run of equal ids in a warp).  Both are memory-bound: values and ids
+are read once, the output written once.  Float sums come out in another
+order than the plain version's and agree to a tolerance; min/max are exact
+— integer atomics on an order-preserving key, ``-0.0`` below ``+0.0``,
+NaN winning (as the canonical quiet NaN).
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ from .. import native
 FUSED_LAUNCHES = Counter()
 #: launches of the one-lane sum/min/max kernel
 LAUNCHES = Counter()
+#: launches of each by the path the kernel took (``hptmt_segment_privatized``)
+FUSED_PATH_LAUNCHES = {"smem": Counter(), "direct": Counter()}
+PATH_LAUNCHES = {"smem": Counter(), "direct": Counter()}
 
 _OPS = {"sum": (0, 0.0), "min": (1, float("inf")), "max": (2, float("-inf"))}
 
@@ -36,6 +43,13 @@ def _inputs(values: torch.Tensor, segment_ids: torch.Tensor, name: str):
     return dev, values, seg
 
 
+def path(num_segments: int, lanes: int) -> str:
+    """The path an ``(num_segments, lanes)`` reduction takes on the current
+    device, as the C entry points choose it."""
+    return ("smem" if native.library().hptmt_segment_privatized(
+        num_segments, lanes) else "direct")
+
+
 def segment_reduce_fused_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
                               num_segments: int) -> torch.Tensor:
     """values ``(N, L)`` float32, ids ``(N,)`` int32 → ``(S, L)`` sums."""
@@ -49,6 +63,7 @@ def segment_reduce_fused_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
             out.data_ptr(), native.stream(dev))
         native.check("hptmt_segment_sum_fused", err)
         FUSED_LAUNCHES.add()
+        FUSED_PATH_LAUNCHES[path(num_segments, lanes)].add()
     return out
 
 
@@ -69,4 +84,5 @@ def segment_reduce_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
             out.data_ptr(), native.stream(dev))
         native.check("hptmt_segment_reduce", err)
         LAUNCHES.add()
+        PATH_LAUNCHES[path(num_segments, 1)].add()
     return out

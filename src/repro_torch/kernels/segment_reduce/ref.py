@@ -11,9 +11,11 @@ segment as a contiguous run:
   * sums are differences of a float64 prefix sum over the finite values —
     exact to far below float32 rounding — with NaN and ±inf entries counted
     separately so they poison only their own segment;
-  * min/max sort by value within the segment (NaN last): the run's first
-    element is the min and its last the max, and a NaN last element means
-    the segment holds a NaN.
+  * min/max sort by value within the segment (NaN last, ``-0.0`` before
+    ``+0.0``, by :func:`order_key`): the run's first element is the min and
+    its last the max, and a NaN last element means the segment holds a
+    NaN.  So ``-0.0`` is the min of ``{-0.0, +0.0}`` and ``+0.0`` its max,
+    as ``jax.ops.segment_min/max`` give.
 
 It deliberately uses no scatter-reduction (``index_add_``,
 ``scatter_reduce``): those are the library yardstick the kernels are timed
@@ -26,6 +28,14 @@ from typing import Tuple
 import torch
 
 _INITS = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+
+
+def order_key(values: torch.Tensor) -> torch.Tensor:
+    """int32 keys whose order is the float32 order of ``values``, with
+    ``-0.0`` below ``+0.0`` and every NaN above ``+inf``."""
+    bits = values.to(torch.float32).view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return torch.where(torch.isnan(values), torch.iinfo(torch.int32).max, key)
 
 
 def _runs(seg: torch.Tensor, num_segments: int, values: torch.Tensor
@@ -77,9 +87,9 @@ def segment_reduce(values: torch.Tensor, segment_ids: torch.Tensor,
     if op not in ("min", "max"):
         raise ValueError(f"unknown op {op!r}")
     values = values.to(torch.float32)
-    # sort by value first (NaN last); the stable sort by segment in _runs
-    # keeps that order inside each run
-    by_value = torch.argsort(values, stable=True)
+    # sort by value first (NaN last, -0.0 before +0.0); the stable sort by
+    # segment in _runs keeps that order inside each run
+    by_value = torch.argsort(order_key(values), stable=True)
     v, _, start, end = _runs(segment_ids[by_value], num_segments,
                              values[by_value])
     out = torch.full((num_segments,), _INITS[op], dtype=torch.float32,

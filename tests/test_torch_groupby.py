@@ -9,6 +9,12 @@ sums in float64 after a sort, the reference scatters (or reduces one-hot
 tiles) in float32, so the order and the rounding differ.  Then the
 operators on 1 shard and on 4: hash and sort local kernels, with and
 without map-side combine.
+
+min and max are also held bit for bit on mixed ``-0.0``/``+0.0`` data
+(``-0.0`` is the min of the two, ``+0.0`` the max, as
+``jax.ops.segment_min/max`` and ``jnp.min/max`` give), and
+:func:`emulate_privatized_segment` rehearses the CUDA kernels' schedule
+(``csrc/segment_reduce.cu``) on the CPU against the plain version.
 """
 import numpy as np
 import pytest
@@ -57,6 +63,40 @@ GROUPBY_CASES = [
     ("sort", ["g", "h"], {"method": "sort"}),
     ("auto", ["g"], {}),
 ]
+
+
+def _signed_zeros(n, seg):
+    """float32 values that are mostly +-0.0: groups with id % 7 == 0 hold
+    only +0.0, == 3 only -0.0, and groups with id % 3 == 1 (2) also hold
+    positive (negative) numbers."""
+    v = np.where(RNG.random(n) < 0.5, np.float32(-0.0), np.float32(0.0))
+    some = RNG.random(n) < 0.15
+    v = np.where(some & (seg % 3 == 1), RNG.uniform(0.5, 2, n), v)
+    v = np.where(some & (seg % 3 == 2), -RNG.uniform(0.5, 2, n), v)
+    v = np.where(seg % 7 == 0, 0.0, v)
+    v = np.where(seg % 7 == 3, -0.0, v)
+    return v.astype(np.float32)
+
+
+#: mixed-zero segment data: ids out of range, an empty segment, NaN
+ZSEG = RNG.integers(-2, S + 3, N).astype(np.int32)
+ZSEG[ZSEG == 11] = 12
+ZVALS = _signed_zeros(N, ZSEG)
+ZVALS[RNG.integers(0, N, 3)] = np.nan
+#: a mixed-zero table for the groupby (no NaN: DATA carries those)
+ZDATA = {"g": RNG.integers(0, 40, 480).astype(np.int32),
+         "h": RNG.integers(0, 3, 480).astype(np.int32)}
+ZDATA["v"] = _signed_zeros(480, ZDATA["g"])
+ZAGGS = [("v", "min"), ("v", "max"), ("v", "count")]
+#: 201 rows: one odd-signed zero among 200 of the other sign, at a row of
+#: the first shard (7) or of the third (137) of a 4-shard table
+ZPOS = (7, 137)
+AGG_ZEROS = {}
+for _pos in ZPOS:
+    _lo = np.zeros(201, np.float32)  # +0.0, one -0.0: min is -0.0
+    _lo[_pos] = -0.0
+    AGG_ZEROS[f"lo{_pos}"] = _lo
+    AGG_ZEROS[f"hi{_pos}"] = -_lo  # -0.0, one +0.0: max is +0.0
 SET_A = {"x": RNG.integers(0, 30, 300).astype(np.int32),
          "y": RNG.integers(0, 2, 300).astype(np.int32)}
 SET_B = {"x": RNG.integers(10, 40, 200).astype(np.int32),
@@ -97,6 +137,34 @@ def test_segment_minmax_nan_propagation_small():
                                   [np.nan, 3.0, -np.inf])
 
 
+def assert_minmax_bits(got, ref, msg=""):
+    """min/max exactly: NaN at the same places, every other entry with the
+    same bits (so ``-0.0`` differs from ``+0.0``)."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan, err_msg=msg)
+    np.testing.assert_array_equal(bits(got[~nan]), bits(ref[~nan]),
+                                  err_msg=msg)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_segment_minmax_signed_zeros_bitwise(op):
+    """The plain min/max against jax.ops' ref and Pallas interpret mode on
+    mixed +-0.0, with NaN, empty segments and ids out of range."""
+    got = tsops.segment_reduce(torch.from_numpy(ZVALS),
+                               torch.from_numpy(ZSEG), S, op).numpy()
+    ref = np.asarray(jsr.segment_reduce(jnp.asarray(ZVALS),
+                                        jnp.asarray(ZSEG), S, op))
+    pallas = np.asarray(jsk.segment_reduce_pallas(
+        jnp.asarray(ZVALS), jnp.asarray(ZSEG), S, op, interpret=True))
+    zero = ref == 0
+    # both signs of zero come out, so the check can tell them apart
+    assert np.signbit(ref[zero]).any() and not np.signbit(ref[zero]).all()
+    assert np.isnan(ref).any() and np.isinf(ref).any()
+    assert_minmax_bits(got, ref, "ref")
+    assert_minmax_bits(got, pallas, "pallas")
+
+
 @pytest.mark.parametrize("data", ["finite", "nan"])
 def test_segment_sum_vs_jax_ref_and_pallas(data):
     v = (VALS if data == "finite" else NAN_VALS)[:, 1]
@@ -124,6 +192,165 @@ def test_segment_sum_fused_vs_jax_ref_and_pallas(data):
         pallas = jsk.segment_reduce_fused_pallas(
             jnp.asarray(vals), jnp.asarray(SEG), S, interpret=True)
         assert_sums_close(got, pallas, _abs_sums(SEG, vals, S), "pallas")
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' schedule, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+#: dynamic shared memory an H100 block may opt in to (the kernels' limit)
+SMEM_BYTES = 232448
+I32 = np.iinfo(np.int32)
+
+
+def _key(v, op):
+    """The kernels' int32 order key: ``-0.0`` below ``+0.0``, NaN the
+    extreme that wins (INT_MIN for min, INT_MAX for max)."""
+    b = np.asarray(v, np.float32).view(np.int32)
+    key = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return np.where(np.isnan(v), I32.min if op == "min" else I32.max,
+                    key).astype(np.int32)
+
+
+def _unkey(k, op):
+    nan = I32.min if op == "min" else I32.max
+    b = np.where(k == nan, 0x7FC00000, k ^ ((k >> 31) & 0x7FFFFFFF))
+    return b.astype(np.int32).view(np.float32)
+
+
+def emulate_privatized_segment(values, seg, num_segments, op, *, ctas=3,
+                               threads=8, smem=SMEM_BYTES, seed=0):
+    """The schedule of ``csrc/segment_reduce.cu``, in numpy.
+
+    ``values (N, L)`` float32, ``seg (N,)`` int32 → ``((S, L), path)``.
+    The path is chosen as the C entry points choose it: ``"smem"`` when
+    ``S * 4`` bytes fit in ``smem`` (lanes split into chunks of equal width
+    when ``S * L * 4`` do not), else ``"direct"``.
+
+    * smem: row ``r`` belongs to CTA ``(r % (ctas * threads)) // threads``
+      of each lane chunk; each CTA folds its rows, in a shuffled order,
+      into a tile that starts at the identity (0.0, or the INT_MAX/INT_MIN
+      key), then publishes every entry that is not still the identity;
+    * direct: warps of 32 consecutive rows; each run of equal ids is
+      reduced by the shuffle ladder (lane ``i`` takes lane ``i - d`` while
+      ``i - d`` is in its run, ``d = 1, 2, ..., 16``) and its last lane
+      publishes.
+
+    The published partials land on the output in a shuffled order, by
+    float32 adds or integer min/max on the keys (the global atomics), and
+    min/max keys turn back into floats (NaN as the canonical quiet NaN).
+    """
+    rng = np.random.default_rng(seed)
+    n, lanes = values.shape
+    s_ = num_segments
+    valid = (seg >= 0) & (seg < s_)
+    if op == "sum":
+        combine, x, ident = np.add, values.astype(np.float32), np.float32(0)
+        out = np.zeros((s_, lanes), np.float32)
+    else:
+        combine = np.minimum if op == "min" else np.maximum
+        x, ident = _key(values, op), (I32.max if op == "min" else I32.min)
+        init = np.float32(np.inf if op == "min" else -np.inf)
+        out = np.full((s_, lanes), _key(init, op), np.int32)
+    partials = []  # (segment ids, lane, partials) of the global atomics
+    per_tile = min(smem // (s_ * 4), lanes)
+    if per_tile > 0:
+        path = "smem"
+        chunks = -(-lanes // per_tile)
+        width = -(-lanes // chunks)
+        cta = (np.arange(n) % (ctas * threads)) // threads
+        for lane0 in range(0, lanes, width):
+            for b in range(ctas):
+                rows = rng.permutation(np.flatnonzero((cta == b) & valid))
+                for c in range(lane0, min(lane0 + width, lanes)):
+                    tile = np.full(s_, ident, x.dtype)
+                    combine.at(tile, seg[rows], x[rows, c])
+                    keep = np.flatnonzero(tile != ident)  # 0.0 == -0.0
+                    partials.append((keep, c, tile[keep]))
+    else:
+        path = "direct"
+        for w0 in range(0, n, 32):
+            rows = np.arange(w0, min(w0 + 32, n))
+            s, lane = seg[rows], np.arange(rows.shape[0])
+            head = np.r_[True, s[1:] != s[:-1]]
+            start = np.maximum.accumulate(np.where(head, lane, 0))
+            pub = np.r_[head[1:], True] & valid[rows]
+            for c in range(lanes):
+                v = np.where(valid[rows], x[rows, c], ident).astype(x.dtype)
+                for d in (1, 2, 4, 8, 16):
+                    y = np.concatenate([v[:d], v[:-d]])[:v.shape[0]]
+                    v = np.where(lane - d >= start, combine(y, v), v)
+                partials.append((s[pub], c, v[pub]))
+    for i in rng.permutation(len(partials)):
+        idx, c, part = partials[i]
+        combine.at(out[:, c], idx, part)
+    return (out if op == "sum" else _unkey(out, op)), path
+
+
+def _sorted_by_segment(seg, values):
+    order = np.argsort(seg, kind="stable")
+    return seg[order], values[order]
+
+
+#: (name, shared-memory bytes, sort the ids): one tile, lane chunks, and
+#: the direct path on shuffled and on sorted ids
+SCHEDULES = [("smem", SMEM_BYTES, False), ("direct", 4 * S - 4, False),
+             ("direct_sorted", 4 * S - 4, True)]
+
+
+@pytest.mark.parametrize("name,smem,sort", SCHEDULES,
+                         ids=[c[0] for c in SCHEDULES])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_emulated_schedule_minmax_bitwise(op, name, smem, sort):
+    """The kernels' schedule gives the plain min/max bit for bit on mixed
+    +-0.0 with NaN, empty segments and ids out of range."""
+    seg, v = (_sorted_by_segment(ZSEG, ZVALS) if sort else (ZSEG, ZVALS))
+    got, path = emulate_privatized_segment(v[:, None], seg, S, op, smem=smem)
+    assert path == name.split("_")[0]
+    exp = tsops.segment_reduce(torch.from_numpy(v), torch.from_numpy(seg), S,
+                               op).numpy()
+    assert_minmax_bits(got[:, 0], exp, f"{op} {name}")
+
+
+#: (name, shared-memory bytes, sort the ids) for three lanes: exactly at
+#: the limit (one tile), one byte-word short of it (two lane chunks), and
+#: one lane that does not fit (direct)
+FUSED_SCHEDULES = [("smem", 3 * 4 * S, False),
+                   ("smem_chunks", 3 * 4 * S - 4, False),
+                   ("direct", 4 * S - 4, False),
+                   ("direct_sorted", 4 * S - 4, True)]
+
+
+@pytest.mark.parametrize("name,smem,sort", FUSED_SCHEDULES,
+                         ids=[c[0] for c in FUSED_SCHEDULES])
+@pytest.mark.parametrize("data", ["finite", "nan"])
+def test_emulated_schedule_fused_sums(data, name, smem, sort):
+    """Counts exact, sums within ``1e-5 * sum|v|`` of the plain version
+    (NaN where it has NaN), ids out of range dropped."""
+    vals = VALS if data == "finite" else NAN_VALS
+    seg, vals = _sorted_by_segment(SEG, vals) if sort else (SEG, vals)
+    got, path = emulate_privatized_segment(vals, seg, S, "sum", smem=smem)
+    assert path == name.split("_")[0]
+    exp = tsops.segment_reduce_fused(torch.from_numpy(vals),
+                                     torch.from_numpy(seg), S).numpy()
+    np.testing.assert_array_equal(got[:, 0], exp[:, 0])
+    assert_sums_close(got, exp, _abs_sums(seg, vals, S), name)
+
+
+@pytest.mark.parametrize("name,smem,sort", FUSED_SCHEDULES,
+                         ids=[c[0] for c in FUSED_SCHEDULES])
+def test_emulated_schedule_drops_ids_out_of_range(name, smem, sort):
+    """Rows whose id lies outside ``[0, S)`` (NaN here) reach no output."""
+    out_of_range = (SEG < 0) | (SEG >= S)
+    assert out_of_range.any()
+    vals = np.where(out_of_range[:, None], np.float32(np.nan), VALS)
+    seg, vals = _sorted_by_segment(SEG, vals) if sort else (SEG, vals)
+    got, _ = emulate_privatized_segment(vals, seg, S, "sum", smem=smem)
+    exp = tsops.segment_reduce_fused(torch.from_numpy(VALS[~out_of_range]),
+                                     torch.from_numpy(SEG[~out_of_range]),
+                                     S).numpy()
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(got[:, 0], exp[:, 0])
+    assert_sums_close(got, exp, _abs_sums(SEG, VALS, S), name)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +393,8 @@ def jax4():
     inputs = {f"t/{k}": v for k, v in DATA.items()}
     inputs.update({f"a/{k}": v for k, v in SET_A.items()})
     inputs.update({f"b/{k}": v for k, v in SET_B.items()})
+    inputs.update({f"z/{k}": v for k, v in ZDATA.items()})
+    inputs.update({f"zagg/{k}": v for k, v in AGG_ZEROS.items()})
     return run_jax_4way(f"""
         t = table("t", capacity=200)
         save("t", t)
@@ -176,6 +405,18 @@ def jax4():
         for op in ("sum", "mean", "count", "min", "max"):
             out["agg_" + op] = np.asarray(run(
                 lambda d: table_ops.aggregate(d, "w", op, ctx=ctx), t))
+        z = table("z", capacity=200)
+        save("z", z)
+        for name, keys, kw in {GROUPBY_CASES!r}:
+            res, ov = run(lambda d: table_ops.groupby_aggregate(
+                d, keys, {ZAGGS!r}, ctx=ctx, **kw), z)
+            save("z_" + name, res, ov)
+        zagg = table("zagg", capacity=64)
+        save("zagg", zagg)
+        for col in {sorted(AGG_ZEROS)!r}:
+            for op in ("min", "max"):
+                out[f"zagg_{{col}}_{{op}}"] = np.asarray(run(
+                    lambda d: table_ops.aggregate(d, col, op, ctx=ctx), zagg))
         a, b = table("a", capacity=100), table("b", capacity=80)
         save("a", a)
         save("b", b)
@@ -217,6 +458,29 @@ def test_groupby_4_shards_vs_jax(jax4, name, keys, kw):
     assert_groupby_close(tout, cols, counts, part, keys, name)
 
 
+@pytest.mark.parametrize("name,keys,kw", GROUPBY_CASES,
+                         ids=[c[0] for c in GROUPBY_CASES])
+def test_groupby_signed_zeros_bitwise_vs_jax(jax4, name, keys, kw):
+    """min/max on mixed +-0.0, hash and sort, on 1 shard and on 4: every
+    output bit equal to JAX's (``-0.0`` the min, ``+0.0`` the max)."""
+    jt = _jax_table(ZDATA)
+    jout, jov = jax.jit(lambda d: jops.groupby_aggregate(
+        d, keys, ZAGGS, ctx=local_context(), **kw))(jt)
+    tout, tov = table_ops.groupby_aggregate(_port(jt), keys, ZAGGS, ctx=CPU1,
+                                            **kw)
+    assert int(tov) == int(jov)
+    cols, counts, part = jax_blocks(jout)
+    v_min = valid_rows(cols, counts)["v_min"]
+    assert np.signbit(v_min[v_min == 0]).any()  # the check sees the signs
+    assert_blocks_equal(tout, cols, counts, part, msg=f"{name} 1 shard")
+
+    t4 = DistTable.from_numpy_blocks(*jax_result(jax4, "z")[:2], device="cpu")
+    tout, tov = table_ops.groupby_aggregate(t4, keys, ZAGGS, ctx=CPU4, **kw)
+    cols, counts, part, jov = jax_result(jax4, "z_" + name)
+    assert int(tov) == jov
+    assert_blocks_equal(tout, cols, counts, part, msg=f"{name} 4 shards")
+
+
 def test_groupby_overflow_counted_vs_jax():
     jt = _jax_table(DATA)
     jout, jov = jax.jit(lambda d: jops.groupby_aggregate(
@@ -245,6 +509,35 @@ def test_aggregate_vs_jax_1_and_4_shards(jax4, op):
             assert abs(got - ref) <= 1e-5 * scale
         else:
             assert got == ref
+
+
+@pytest.mark.parametrize("pos", ZPOS)
+@pytest.mark.parametrize("col", ["lo", "hi"])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_aggregate_signed_zeros_bitwise(jax4, op, col, pos):
+    """min/max of 200 zeros of one sign and one of the other, bit for bit.
+
+    On 1 shard against JAX's aggregate.  On 4 shards against JAX's
+    aggregate of the same rows on one device (``jnp.min``/``jnp.max`` over
+    every row): JAX's 4-shard aggregate combines shards with
+    ``lax.pmin``/``pmax``, whose all-reduce on the CPU keeps the lowest
+    shard's zero and drops NaN, so it is held to the port only where the
+    odd zero lies in the first shard.
+    """
+    name = f"{col}{pos}"
+    jt = _jax_table({"x": AGG_ZEROS[name]})
+    ref = np.asarray(jops.aggregate(jt, "x", op, ctx=local_context()))
+    assert ref == 0
+    got1 = table_ops.aggregate(_port(jt), "x", op, ctx=CPU1).numpy()
+    cols, counts = jax_result(jax4, "zagg")[:2]
+    t4 = DistTable.from_numpy_blocks({"x": cols[name]}, counts, device="cpu")
+    got4 = table_ops.aggregate(t4, "x", op, ctx=CPU4).numpy()
+    np.testing.assert_array_equal(bits(got1), bits(ref))
+    np.testing.assert_array_equal(bits(got4), bits(ref))
+    first = cols[name][:counts[0]]
+    if np.signbit(first).any() != np.signbit(first).all():  # odd one there
+        np.testing.assert_array_equal(
+            bits(got4), bits(jax4[f"zagg_{name}_{op}"].astype(np.float32)))
 
 
 @pytest.mark.parametrize("kind", ["union", "intersect", "difference"])

@@ -170,8 +170,7 @@ def test_segment_reduce_kernel(dev, op):
         ok = ~exp.isnan()
         assert bool(((got - exp).abs()[ok] <= 1e-5 * scale[ok]).all())
     else:
-        assert torch.equal(got.nan_to_num(7.0), exp.nan_to_num(7.0))
-        assert torch.equal(got.isnan(), exp.isnan())
+        assert _minmax_bits_equal(got, exp)
 
 
 def test_segment_reduce_fused_kernel(dev):
@@ -193,6 +192,101 @@ def test_minmax_nan_propagation(dev):
     hi = srk.segment_reduce_cuda(v, s, 3, "max").cpu().numpy()
     np.testing.assert_array_equal(lo, [np.nan, 2.0, np.inf])
     np.testing.assert_array_equal(hi, [np.nan, 3.0, -np.inf])
+
+
+def _minmax_bits_equal(got, exp):
+    """NaN at the same places, every other entry with the same bits."""
+    nan = exp.isnan()
+    return (torch.equal(got.isnan(), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            exp[~nan].view(torch.int32)))
+
+
+def _smem_limit(dev):
+    """Dynamic shared memory a block may opt in to (227 KB on an H100)."""
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+#: (name, lanes, S from the limit, path): both sides of the shared-memory
+#: threshold — one lane exactly at it and one over, eight lanes exactly at
+#: it and one segment over (two lane chunks), seven lanes in chunks of 3
+#: (the last one narrower), the hash groupby's shape, five lanes direct
+SEGMENT_CASES = [
+    ("l1_at_limit", 1, lambda lim: lim // 4, "smem"),
+    ("l1_over_limit", 1, lambda lim: lim // 4 + 1, "direct"),
+    ("l8_at_limit", 8, lambda lim: lim // 32, "smem"),
+    ("l8_chunks", 8, lambda lim: lim // 32 + 1, "smem"),
+    ("l7_chunks_of_3", 7, lambda lim: lim // 12, "smem"),
+    ("l3_hash", 3, lambda lim: 8192, "smem"),
+    ("l5_direct", 5, lambda lim: lim // 4 + 1, "direct"),
+]
+
+
+def _segment_ids(n, s, sort):
+    seg = torch.from_numpy(RNG.integers(-5, s + 5, n).astype(np.int32))
+    return torch.sort(seg).values if sort else seg
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["shuffled", "sorted"])
+@pytest.mark.parametrize("name,lanes,segments,path", SEGMENT_CASES,
+                         ids=[c[0] for c in SEGMENT_CASES])
+def test_segment_fused_paths(dev, name, lanes, segments, path, sort):
+    """Counts exact and sums within ``1e-5 * sum|v|`` on the path the byte
+    count picks, on shuffled and on sorted ids."""
+    n, s = 300_000, segments(_smem_limit(dev))
+    assert srk.path(s, lanes) == path, (s * lanes * 4, _smem_limit(dev))
+    v = torch.from_numpy(RNG.normal(size=(n, lanes)).astype(np.float32)).to(dev)
+    v[:, 0] = 1.0
+    seg = _segment_ids(n, s, sort).to(dev)
+    before = srk.FUSED_PATH_LAUNCHES[path].n
+    got = srk.segment_reduce_fused_cuda(v, seg, s)
+    assert srk.FUSED_PATH_LAUNCHES[path].n == before + 1
+    exp = srr.segment_reduce_fused(v, seg, s)
+    assert torch.equal(got[:, 0], exp[:, 0])  # counts are exact
+    scale = srr.segment_reduce_fused(v.abs(), seg, s)
+    assert bool(((got - exp).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["shuffled", "sorted"])
+@pytest.mark.parametrize("path", ["smem", "direct"])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_segment_minmax_signed_zeros_bitwise(dev, op, path, sort):
+    """Mixed +-0.0 (and NaN, empty segments, ids out of range): -0.0 is
+    the min of the two, +0.0 the max, bit for bit, on both paths."""
+    n = 200_000
+    s = 1000 if path == "smem" else _smem_limit(dev) // 4 + 1
+    assert srk.path(s, 1) == path
+    seg = _segment_ids(n, s, sort)
+    v = np.where(RNG.random(n) < 0.5, np.float32(-0.0), np.float32(0.0))
+    some = RNG.random(n) < 0.05
+    sn = seg.numpy()
+    v = np.where(some & (sn % 3 == 1), RNG.uniform(0.5, 2, n), v)
+    v = np.where(some & (sn % 3 == 2), -RNG.uniform(0.5, 2, n), v)
+    v = np.where(sn % 7 == 0, 0.0, np.where(sn % 7 == 3, -0.0, v))
+    v = torch.from_numpy(v.astype(np.float32))
+    v[torch.from_numpy(RNG.integers(0, n, 3))] = float("nan")
+    v, seg = v.to(dev), seg.to(dev)
+    before = srk.PATH_LAUNCHES[path].n
+    got = srk.segment_reduce_cuda(v, seg, s, op)
+    assert srk.PATH_LAUNCHES[path].n == before + 1
+    exp = srr.segment_reduce(v, seg, s, op)
+    zero = exp == 0
+    assert exp[zero].signbit().any() and not exp[zero].signbit().all()
+    assert _minmax_bits_equal(got, exp)
+
+
+def test_segment_kernels_empty_input(dev):
+    """n = 0: the identity comes back and nothing launches."""
+    v = torch.empty((0, 3), device=dev)
+    seg = torch.empty(0, dtype=torch.int32, device=dev)
+    fused, one = srk.FUSED_LAUNCHES.n, srk.LAUNCHES.n
+    assert torch.equal(srk.segment_reduce_fused_cuda(v, seg, 17),
+                       torch.zeros((17, 3), device=dev))
+    for op, init in (("sum", 0.0), ("min", float("inf")),
+                     ("max", float("-inf"))):
+        got = srk.segment_reduce_cuda(v[:, 0], seg, 17, op)
+        assert torch.equal(got, torch.full((17,), init, device=dev))
+    assert (srk.FUSED_LAUNCHES.n, srk.LAUNCHES.n) == (fused, one)
 
 
 def _nan_equal(a, b):
