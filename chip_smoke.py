@@ -78,14 +78,38 @@ Phases (every failed check raises; nothing is caught):
    copy of the model must give identical greedy tokens on both paths
    (batch 2, prompt 256, 16 tokens);
 9. the same for smollm-360m (GQA 15/5, tied embeddings), full size;
-10. summary — the script's seconds so far, the ``kernels`` JSON line, the
+10. the sort-merge join — phases 3 and 4's main path with
+   ``join(method="sort")``, on 1 shard and on 4: the same numpy oracle,
+   the join rows equal to phase 3's hash-join rows as a multiset, 0 and 3
+   exchanges, no probe launch (segment kernels, and on 4 shards
+   hash_partition, do launch); prints ``array_ops.SORTS``;
+11. the cartesian product of two 2^12-row tables ``{k, v}`` x ``{k, w}``
+   on 1 and 4 shards: 2^24 rows, equal as a multiset to numpy's product,
+   no exchange;
+12. storage, native ``.hpt`` in a temporary directory removed at the end.
+   On 4 shards the left frame is written with ``to_hpt(partition_by=
+   ["k"])`` and read back with ``DataFrame.read_dataset``: it re-enters
+   partitioned on ``k``, so the join with the in-memory right frame and
+   the two groupbys make 2 exchanges (phase 4: 3) with phase 4's oracle
+   answers, and a join of two re-entered sides makes none; the same
+   dataset read on 1 shard carries no partitioning.  On 1 shard the
+   left frame sorted by ``k`` is written in row groups of 2^20 and read
+   with ``columns=["k", "v"]`` and ``pred("k", "<", 2^22)``: the rows
+   equal the numpy filter, and ``ScanStats`` skips exactly the fragments
+   whose min/max prove them empty and reads 2 columns.  Prints the write
+   and read seconds and rates (medians of 3 of the 4-shard dataset; the
+   writer does not fsync and the reads follow the writes, so both go
+   through the host's page cache and are not a disk's rate), the bytes
+   on disk and the re-entry path's wall time;
+13. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
-Wall times of phases 3-9 are medians of 3 runs after one checked warm-up
+Wall times of phases 3-12 are medians of 3 runs after one checked warm-up
 run; kernel launch counts are those of the checked runs.  ``--profile``
-adds one ``torch.profiler`` run of each of phases 3-9 (device busy share,
-top kernels; tables in ``chiprun_out/profile_*.txt``).
+adds one ``torch.profiler`` run of each of phases 3-10 and of phase 12's
+re-entry path (device busy share, top kernels; a table of each in the
+output directory that ``profile_run`` writes to).
 Float32 matrix products run in full float32 (TF32 off, PyTorch's
 default, set here).
 """
@@ -94,9 +118,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,6 +149,8 @@ QS = (0.01, 0.5, 0.99)
 WINDOWS = (1, 7, 32, 512, 4096, 8192)
 SERVE = {"batch": 8, "prompt": 1024, "gen": 64}
 SERVE_F32 = {"batch": 2, "prompt": 256, "gen": 16}
+CART_ROWS = 1 << 12
+ROWS_PER_GROUP, K_BELOW = 1 << 20, 1 << 22
 
 
 def check(cond, what: str) -> None:
@@ -217,10 +245,10 @@ def check_close(got, ref, scale, what):
           f"{what}: max |err|/sum|v| = {float((err / scale).max())}")
 
 
-def check_main_path(res, left_dev, oracle, tag: str):
-    """Exact row counts, keys, counts and min/max; sums within
-    ``1e-5 * sum|v|`` per group of the float64 oracle."""
-    j = res["j"].table.valid_rows()
+def check_join(jdf, left_dev, oracle, tag: str):
+    """The main path's join: one row a left row, each matched, with the
+    ``w`` of its key; returns the rows."""
+    j = jdf.table.valid_rows()
     check(j["k"].shape[0] == LEFT_ROWS, f"{tag}: join rows")
     check(bool(j["_matched"].all()), f"{tag}: every join row matched")
     wk = torch.from_numpy(oracle["w_of_key"]).to(j["k"].device)
@@ -228,6 +256,13 @@ def check_main_path(res, left_dev, oracle, tag: str):
     check(torch.equal(canonical(j, ["k", "g", "v"]),
                       canonical(left_dev, ["k", "g", "v"])),
           f"{tag}: join rows are the left rows")
+    return j
+
+
+def check_main_path(res, left_dev, oracle, tag: str):
+    """Exact row counts, keys, counts and min/max; sums within
+    ``1e-5 * sum|v|`` per group of the float64 oracle."""
+    j = check_join(res["j"], left_dev, oracle, tag)
 
     g = res["g"].to_numpy()
     order = np.argsort(g["g"])
@@ -253,15 +288,35 @@ def check_main_path(res, left_dev, oracle, tag: str):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-def main_path(DataFrame, ctx, left, right, bucket_factor):
+def main_path(DataFrame, ctx, left, right, bucket_factor, method="auto"):
     """The slice's main path through the user entry points."""
     ldf = DataFrame.from_dict(left, ctx, bucket_factor=bucket_factor)
     rdf = DataFrame.from_dict(right, ctx, bucket_factor=bucket_factor)
-    j = ldf.join(rdf, ["k"])
+    return join_groupbys(ldf, rdf, method)
+
+
+def join_groupbys(ldf, rdf, method="auto"):
+    """Join on ``k``, then group by ``g`` and by ``k``."""
+    j = ldf.join(rdf, ["k"], method=method)
     g = j.groupby(["g"], G_AGGS, out_capacity=G_OUT_CAP)
     k = j.groupby(["k"], [("v", "sum")])
     torch.cuda.synchronize()
     return {"j": j, "g": g, "k": k}
+
+
+def make_cart(seed: int):
+    rng = np.random.default_rng(seed + 2)
+    return ({"k": rng.integers(0, 1 << 20, CART_ROWS, dtype=np.int32),
+             "v": rng.standard_normal(CART_ROWS, dtype=np.float32)},
+            {"k": rng.integers(0, 1 << 20, CART_ROWS, dtype=np.int32),
+             "w": rng.standard_normal(CART_ROWS, dtype=np.float32)})
+
+
+def cartesian_path(DataFrame, table_ops, ctx, a, b):
+    adf, bdf = DataFrame.from_dict(a, ctx), DataFrame.from_dict(b, ctx)
+    out = table_ops.cartesian(adf.table, bdf.table, ctx=ctx)
+    torch.cuda.synchronize()
+    return out
 
 
 def set_ops(DataFrame, ctx, sets):
@@ -955,6 +1010,184 @@ SOURCES = {
 }
 
 
+def sort_join_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
+                    launches, j1, profile: bool):
+    """Phases 3-4's main path with ``join(method="sort")`` (phase 10)."""
+    names = sorted(j1)
+    for tag, ctx, bf, want in (("sort_join_1shard", ctx1, 1.0, 0),
+                               ("sort_join_4shards", ctx4, 2.0, 3)):
+        launches.reset()
+        res = main_path(DataFrame, ctx, left, right, bf, method="sort")
+        counts, ex = launches.read()
+        sorts = launches.sorts.n
+        check(ex == want, f"{tag}: exchanges {ex}, want {want}")
+        check(counts["probe"] == 0, f"{tag}: the sort join launches no probe")
+        check(counts["segment_reduce_fused"] > 0
+              and counts["segment_reduce"] > 0, f"{tag}: segment kernels")
+        check(ctx.n_shards == 1 or counts["hash_partition"] > 0,
+              f"{tag}: hash_partition")
+        check(res["j"].overflow_report.is_exact(), f"{tag}: exact")
+        js, _ = check_main_path(res, left_dev, oracle, tag)
+        check(torch.equal(canonical(js, names), canonical(j1, names)),
+              f"{tag}: the rows of phase 3's hash join")
+        del res, js
+        runs = timed_runs(lambda: main_path(DataFrame, ctx, left, right, bf,
+                                            method="sort"))
+        if profile:
+            profile_run(tag, lambda: main_path(DataFrame, ctx, left, right,
+                                               bf, method="sort"))
+        emit(tag, launches=counts, exchanges=ex, sorts=sorts,
+             median_s=statistics.median(runs), runs_s=runs)
+
+
+def cartesian_phase(DataFrame, ctx1, ctx4, seed, dev, launches):
+    """``cartesian`` of two 2^12-row tables against numpy's product
+    (phase 11)."""
+    from repro_torch.core import table_ops
+
+    ca, cb = make_cart(seed)
+    ca_dev = {k: torch.from_numpy(v).to(dev) for k, v in ca.items()}
+    cb_dev = {k: torch.from_numpy(v).to(dev) for k, v in cb.items()}
+    names = ["a_k", "a_v", "b_k", "b_w"]
+    want = canonical({"a_k": ca_dev["k"].repeat_interleave(CART_ROWS),
+                      "a_v": ca_dev["v"].repeat_interleave(CART_ROWS),
+                      "b_k": cb_dev["k"].repeat(CART_ROWS),
+                      "b_w": cb_dev["w"].repeat(CART_ROWS)}, names)
+    for tag, ctx in (("cartesian_1shard", ctx1), ("cartesian_4shards", ctx4)):
+        launches.reset()
+        out = cartesian_path(DataFrame, table_ops, ctx, ca, cb)
+        _, ex = launches.read()
+        check(ex == 0, f"{tag}: exchanges {ex}")
+        check(torch.equal(canonical(out.valid_rows(), names), want),
+              f"{tag}: the rows of numpy's product")
+        del out
+        runs = timed_runs(lambda: cartesian_path(DataFrame, table_ops, ctx,
+                                                 ca, cb))
+        emit(tag, rows=CART_ROWS * CART_ROWS, exchanges=ex,
+             median_s=statistics.median(runs), runs_s=runs)
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for f in os.listdir(root))
+
+
+def storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
+                  launches, profile: bool):
+    """Native ``.hpt`` storage on the card: partitioned re-entry on 4
+    shards, projection and predicate pushdown on 1 (phase 12)."""
+    from repro_torch.io import open_dataset, pred, read_dataset
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="hptmt_smoke_") as tmp:
+        lroot, rroot, sroot = (os.path.join(tmp, n)
+                               for n in ("left", "right", "sorted"))
+        ldf = DataFrame.from_dict(left, ctx4, bucket_factor=2.0)
+        rdf = DataFrame.from_dict(right, ctx4, bucket_factor=2.0)
+        launches.reset()
+        t0 = time.perf_counter()
+        ldf.to_hpt(lroot, partition_by=["k"])
+        writes = [time.perf_counter() - t0]
+        counts_w, ex_w = launches.read()
+        check(ex_w == 1 and counts_w["hash_partition"] > 0,
+              f"the partitioned write shuffles once: {ex_w}, {counts_w}")
+        nbytes = dir_bytes(lroot)
+        for i in (1, 2):  # two more writes for the median, then removed
+            again = f"{lroot}_{i}"
+            writes += timed_runs(
+                lambda: ldf.to_hpt(again, partition_by=["k"]), runs=1)
+            check(dir_bytes(again) == nbytes, "rewrites are the same size")
+            shutil.rmtree(again)
+        del ldf
+
+        def read_left():
+            lp = DataFrame.read_dataset(lroot, ctx4)
+            torch.cuda.synchronize()
+            return lp
+
+        def reentry():
+            lp = DataFrame.read_dataset(lroot, ctx4)
+            return dict(join_groupbys(lp, rdf), lp=lp)
+
+        launches.reset()
+        t0 = time.perf_counter()
+        lp = read_left()
+        reads = [time.perf_counter() - t0]
+        res = dict(join_groupbys(lp, rdf), lp=lp)
+        counts_r, ex_r = launches.read()
+        check(lp.partitioning == (("k",), 4),
+              f"re-entry partitioning: {lp.partitioning}")
+        check(ex_r == 2, f"re-entry exchanges: {ex_r} (right side 1, "
+              f"groupby g 1; phase 4 makes 3)")
+        check(counts_r["probe"] > 0 and counts_r["hash_partition"] > 0,
+              f"re-entry launches: {counts_r}")
+        check_main_path(res, left_dev, oracle, "re-entry, 4 shards")
+        del res
+        reads += timed_runs(read_left, runs=2)
+        runs = timed_runs(reentry)
+        if profile:
+            profile_run("reentry_4shards", reentry)
+
+        rdf.to_hpt(rroot, partition_by=["k"])
+        rp = DataFrame.read_dataset(rroot, ctx4)
+        check(rp.partitioning == (("k",), 4), "right side re-enters")
+        launches.reset()
+        j0 = lp.join(rp, ["k"])
+        counts_0, ex_0 = launches.read()
+        check(ex_0 == 0, f"a join of two re-entered sides: {ex_0} exchanges")
+        check_join(j0, left_dev, oracle, "join of re-entered sides")
+        del j0, rp, rdf, lp
+        lp1 = DataFrame.read_dataset(lroot, ctx1)
+        check(lp1.partitioning is None and len(lp1) == LEFT_ROWS,
+              "a 1-shard read of the 4-shard dataset carries no layout")
+        del lp1
+        write_s, read_s = statistics.median(writes), statistics.median(reads)
+        out["reentry_4shards"] = dict(
+            write_s=write_s, read_s=read_s, writes_s=writes, reads_s=reads,
+            bytes_on_disk=nbytes, write_gb_s=nbytes / write_s / 1e9,
+            read_gb_s=nbytes / read_s / 1e9, launches=counts_r,
+            exchanges=ex_r, write_launches=counts_w,
+            both_reentered_exchanges=ex_0, both_reentered_launches=counts_0,
+            median_s=statistics.median(runs), runs_s=runs)
+
+        # pushdown: the left frame sorted by k, in row groups of 2^20
+        sdf = DataFrame.from_dict(left, ctx1).sort_values("k")
+        t0 = time.perf_counter()
+        sdf.to_hpt(sroot, rows_per_group=ROWS_PER_GROUP)
+        swrite_s = time.perf_counter() - t0
+        del sdf
+        frags = open_dataset(sroot).fragments
+        proven = sum(f.stats["k"][0] >= K_BELOW for f in frags)
+        t0 = time.perf_counter()
+        dt, ov, st = read_dataset(sroot, ctx=ctx1, columns=["k", "v"],
+                                  predicate=pred("k", "<", K_BELOW))
+        torch.cuda.synchronize()
+        sread_s = time.perf_counter() - t0
+        check(ov == 0, "pushdown scan overflow")
+        check(st.row_groups_total == LEFT_ROWS // ROWS_PER_GROUP
+              and st.row_groups_skipped == proven > 0,
+              f"pushdown skipped {st.row_groups_skipped} of "
+              f"{st.row_groups_total} fragments; the stats prove {proven}")
+        check(st.columns_read == 2, f"columns read: {st.columns_read}")
+        got = dt.valid_rows()
+        check(sorted(got) == ["k", "v"], f"projected columns: {sorted(got)}")
+        order = torch.argsort(left_dev["k"], stable=True)
+        sk = left_dev["k"][order]
+        sel = sk < K_BELOW
+        check(torch.equal(got["k"], sk[sel])
+              and torch.equal(bit_key(got["v"]),
+                              bit_key(left_dev["v"][order][sel])),
+              "pushdown rows equal the numpy filter of the sorted rows")
+        out["pushdown_1shard"] = dict(
+            write_s=swrite_s, read_s=sread_s,
+            bytes_on_disk=dir_bytes(sroot), rows_selected=st.rows_selected,
+            rows_scanned=st.rows_scanned,
+            row_groups=[st.row_groups_skipped, st.row_groups_total],
+            columns=[st.columns_read, st.columns_total])
+        del dt, got
+    return out
+
+
 def sass_hgmma(lib) -> dict:
     """Count of ``HGMMA`` (wgmma) instructions in the SASS of each kernel
     of the built library that has any."""
@@ -984,7 +1217,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one run of each of phases 3-9")
+                    help="also profile one run of each of phases 3-10 and "
+                    "of the re-entry path")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1074,7 +1308,7 @@ def main() -> int:
     for key in ("g", "v_count", "v_min", "v_max"):
         check(np.array_equal(g1[key], g4[key]), f"4-shard groupby {key}")
     peak4 = torch.cuda.max_memory_allocated() / 2**30
-    del res4, j1, j4
+    del res4, j4
     runs4 = timed_runs(lambda: main_path(DataFrame, ctx4, left, right, 2.0))
     if args.profile:
         profile_run("main_4shards",
@@ -1152,7 +1386,21 @@ def main() -> int:
     for arch in ("phi3-mini-3.8b", "smollm-360m"):
         serve_phase(arch, dev, args.seed, launches, args.profile)
 
-    # 10. summary
+    # 10. the sort-merge join on the main path, 1 and 4 shards
+    sort_join_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
+                    launches, j1, args.profile)
+    del j1
+
+    # 11. cartesian product, 1 and 4 shards
+    cartesian_phase(DataFrame, ctx1, ctx4, args.seed, dev, launches)
+
+    # 12. storage: partitioned re-entry and pushdown, native .hpt
+    for tag, fields in storage_phase(DataFrame, ctx1, ctx4, left, right,
+                                     left_dev, oracle, launches,
+                                     args.profile).items():
+        emit(tag, **fields)
+
+    # 13. summary
     kernels = []
     for r in krows:
         name = r["name"]

@@ -334,20 +334,23 @@ def order_lanes(cols: Cols, key_names: Sequence[str],
                       for k, asc in zip(key_names, ascending)], dim=1)
 
 
-def lex_order(keys, mask: torch.Tensor) -> torch.Tensor:
+def lex_order(keys, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Stable lexicographic sort permutation; invalid rows last.
 
     ``keys`` is an ``(n, L)`` lane matrix (:func:`order_lanes`) or a
     sequence of 1-D key tensors, most significant first.  Equal keys keep
     their row order, so the permutation is ``jnp.lexsort``'s — stable
-    sorts from the least significant key up.  The port's one sort choke
-    point: every call adds one to ``array_ops.SORTS``.
+    sorts from the least significant key up.  ``mask=None`` sorts by the
+    keys alone, for a caller whose keys already place invalid rows last.
+    The port's one sort choke point: every call adds one to
+    ``array_ops.SORTS``.
     """
     SORTS.add()
     keys = list(keys.unbind(1)) if isinstance(keys, torch.Tensor) \
         else list(keys)
-    order = torch.arange(mask.shape[0], device=mask.device)
-    for key in keys[::-1] + [(~mask).to(torch.int8)]:
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    steps = keys[::-1] + ([] if mask is None else [(~mask).to(torch.int8)])
+    for key in steps:
         order = order[torch.argsort(key[order], stable=True)]
     return order
 
@@ -383,9 +386,7 @@ def range_splitters(lanes: Sequence[torch.Tensor],
             torch.clamp(count - 1, min=0))
         samples.append(torch.where((sidx < count)[:, None], ln[sidx], _M32))
     sample = allgather(samples).reshape(-1, lanes[0].shape[1])
-    sample = sample[lex_order(sample, torch.ones(sample.shape[0],
-                                                 dtype=torch.bool,
-                                                 device=sample.device))]
+    sample = sample[lex_order(sample, None)]
     total = sample.shape[0]
     spos = (torch.arange(1, n_shards, device=sample.device) * total) \
         // n_shards

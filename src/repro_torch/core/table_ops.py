@@ -19,10 +19,8 @@ Operators implemented here (→ paper table):
   intersect, join, orderby, aggregate,
   groupby(+aggregate)                      — Table III (distributed)
   window_aggregate, rank, topk, quantile   — ordered analytics (§9)
+  cartesian                                — Table II (distributed)
   shuffle                                  — Fig 2 primitive
-
-``join(method="sort")`` and ``cartesian`` belong to a later slice of the
-port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,13 +36,11 @@ from .exchange import (_scatter_rows, check_no_reserved, compact_rows,
                        hash_shuffle, key_compare_u32, lex_order, order_lanes,
                        range_shuffle, take_hashes)
 from .operator import Abstraction, operator
-from .table import (DistTable, _pad_axis0, hash_columns,
+from .table import (M32, DistTable, _pad_axis0, hash_columns,
                     partitioning_ascending, partitioning_keys,
-                    partitioning_kind, range_partitioning)
+                    partitioning_kind, range_partitioning, u32)
 
 Cols = Dict[str, torch.Tensor]
-
-_LATER = "is not ported yet: it arrives with a later slice of the PyTorch port"
 
 
 def _zero(dev) -> torch.Tensor:
@@ -378,8 +374,7 @@ def _quantile_approx(cols, counts, column, qarr, n_samples):
         nvals.append(ok.sum(dtype=torch.int32))
     sample = allgather(samples).reshape(-1)
     nval = allreduce(nvals)
-    ones = torch.ones(sample.shape[0], dtype=torch.bool, device=sample.device)
-    sample = sample[lex_order([sample], ones)]  # invalid (+inf) sort last
+    sample = sample[lex_order([sample], None)]  # invalid (+inf) sort last
     t = qarr * torch.clamp(nval - 1, min=0).to(torch.float32)
     lo, hi = torch.floor(t).to(torch.int64), torch.ceil(t).to(torch.int64)
     last = sample.shape[0] - 1
@@ -477,7 +472,7 @@ def quantile(dt: DistTable, column: str, qs, *, ctx: HPTMTContext,
 
 
 # ===========================================================================
-# Join (Table III) — shuffle + local hash build/probe
+# Join (Table III) — shuffle + local hash build/probe (or sort-merge oracle)
 # ===========================================================================
 _JOIN_HOWS = ("inner", "left", "right", "outer")
 
@@ -513,6 +508,116 @@ def _emit_join_columns(lcols: Cols, rcols: Cols, keys, li, ri) -> Cols:
         out[name] = _bcast(has_r, v[ri_s])
     out["_matched"] = has_l & has_r
     return out
+
+
+def _local_sorted_join(lcols: Cols, ln, rcols: Cols, rn, *, keys, how,
+                       max_matches, window, out_capacity):
+    """Sort-merge local join: the right side sorted by its carried ``h1``,
+    each left row's equal-``h1`` run found by binary search and verified
+    through a bounded window of ``window`` candidates.
+
+    Overflow counts verified matches dropped by ``max_matches``,
+    equal-``h1`` candidates beyond ``window`` (never verified) and rows
+    past ``out_capacity``.
+    """
+    lcols, lh1, lh2 = take_hashes(lcols, keys)
+    rcols, rh1, rh2 = take_hashes(rcols, keys)
+    if _cap(rcols) == 0:
+        # one invalid row stands in for an empty right side, so every
+        # gather below has a row to read (the default output capacity
+        # already counts the right side as ``max(capacity, 1)`` rows)
+        rcols = {k: _pad_axis0(v, 1) for k, v in rcols.items()}
+        rh1, rh2 = _pad_axis0(rh1, 1), _pad_axis0(rh2, 1)
+    lcap, rcap = _cap(lcols), _cap(rcols)
+    dev = rh1.device
+    lmask, rmask = _mask_for(ln, lcap), _mask_for(rn, rcap)
+
+    # sort the right side by h1 as uint32 values (an int32 view would put
+    # hashes >= 2^31 first); invalid rows carry the largest hash, so one
+    # stable sort on h1 alone orders the whole array, tail included, as
+    # binary search needs, and breaks ties as the reference's argsort does
+    rh1 = torch.where(rmask, u32(rh1), M32)
+    rorder = lex_order([rh1], None)
+    rh1s, rh2s = rh1[rorder], rh2[rorder]
+    rvalid_s = rmask[rorder]
+    rkey_s = key_compare_u32(rcols, keys)[rorder]
+    lkeys = key_compare_u32(lcols, keys)
+
+    lh1 = u32(lh1)
+    lo = torch.searchsorted(rh1s, lh1)
+    cnt = torch.searchsorted(rh1s, lh1, right=True) - lo
+
+    rows = torch.arange(lcap, device=dev)
+    cnt_win = torch.zeros(lcap, dtype=torch.int32, device=dev)
+    # right rows some left row verified against, even past the fan-out cap
+    # (a capped pair must not resurface in the right/outer tail)
+    track_touch = how in ("right", "outer")
+    rtouched = torch.zeros(rcap, dtype=torch.bool, device=dev)
+
+    def candidate(j):
+        cand = torch.clamp(lo + j, 0, rcap - 1)
+        # keys compare by bits, as the hash does: NaN keys with equal bits
+        # are equal, -0.0 and +0.0 are not
+        ok = ((j < cnt) & lmask & rvalid_s[cand] & (lh2 == rh2s[cand])
+              & (lkeys == rkey_s[cand]).all(dim=1))
+        if track_touch:
+            rtouched[cand[ok]] = True
+        return cand.to(torch.int32), ok
+
+    if max_matches == 1:
+        # scatter-free: the first verified candidate wins
+        ridx = torch.full((lcap,), -1, dtype=torch.int32, device=dev)
+        found = torch.zeros(lcap, dtype=torch.bool, device=dev)
+        for j in range(window):
+            cand, ok = candidate(j)
+            cnt_win += ok
+            ok &= ~found
+            ridx = torch.where(ok, cand, ridx)
+            found |= ok
+        right_idx = ridx[:, None]
+        matched = found.to(torch.int32)
+    else:
+        matched = torch.zeros(lcap, dtype=torch.int32, device=dev)
+        right_idx = torch.full((lcap, max_matches), -1, dtype=torch.int32,
+                               device=dev)
+        for j in range(window):
+            cand, ok = candidate(j)
+            cnt_win += ok
+            ok &= matched < max_matches
+            slot = torch.clamp(matched, 0, max_matches - 1).to(torch.int64)
+            right_idx.index_put_((rows, slot), torch.where(
+                ok, cand, right_idx[rows, slot]))
+            matched += ok
+
+    # fan-out overflow: matches verified but dropped by max_matches, plus
+    # equal-h1 candidates beyond the window that were never verified
+    fanout_ov = (torch.clamp(cnt_win - max_matches, min=0)
+                 + torch.where(lmask, torch.clamp(cnt - window, min=0), 0)
+                 ).sum(dtype=torch.int32)
+
+    # expand to (lcap * max_matches) candidate output rows
+    li = rows.repeat_interleave(max_matches)
+    ri = right_idx.reshape(-1)
+    has_match = ri >= 0
+    first = (torch.arange(lcap * max_matches, device=dev) % max_matches) == 0
+    keep_unmatched_l = first & lmask[li] & (matched[li] == 0)
+    if how in ("inner", "right"):
+        keep = has_match
+    else:  # left / outer
+        keep = has_match | keep_unmatched_l
+    if how in ("right", "outer"):
+        # tail block: right rows (in h1-sorted space) no left row verified
+        li = torch.cat([li, torch.full((rcap,), -1, device=dev)])
+        ri = torch.cat([ri, torch.arange(rcap, dtype=torch.int32,
+                                         device=dev)])
+        keep = torch.cat([keep, rvalid_s & ~rtouched])
+
+    # ri indexes h1-sorted right space: compose it with the sort so every
+    # right column rides one gather through ``rorder``
+    rsrc = torch.where(ri >= 0, rorder[ri.clamp(min=0).to(torch.int64)], -1)
+    out = _emit_join_columns(lcols, rcols, keys, li, rsrc)
+    cols, n_out, trunc = compact_rows(out, keep, out_capacity)
+    return cols, n_out, trunc + fanout_ov
 
 
 def _local_hash_join(lcols: Cols, ln, rcols: Cols, rn, *, keys, how,
@@ -584,8 +689,8 @@ def _shuffle_side(cols, counts, ov, keys, n_shards, bucket, mid_cap):
 
 
 def _join_impl(lc: List[Cols], lcnt, rc: List[Cols], rcnt, *, keys, how,
-               max_matches, max_probes, n_shards, lbucket, rbucket,
-               mid_cap_l, mid_cap_r, out_capacity, shuffle_left,
+               method, max_matches, window, max_probes, n_shards, lbucket,
+               rbucket, mid_cap_l, mid_cap_r, out_capacity, shuffle_left,
                shuffle_right):
     ov = [_zero(c.device) for c in lcnt]
     if n_shards > 1:
@@ -600,10 +705,16 @@ def _join_impl(lc: List[Cols], lcnt, rc: List[Cols], rcnt, *, keys, how,
                                          rbucket, mid_cap_r)
     outs, counts = [], []
     for s in range(len(lc)):
-        out, cnt, o = _local_hash_join(
-            lc[s], lcnt[s], rc[s], rcnt[s], keys=keys, how=how,
-            max_matches=max_matches, max_probes=max_probes,
-            out_capacity=out_capacity)
+        if method == "hash":
+            out, cnt, o = _local_hash_join(
+                lc[s], lcnt[s], rc[s], rcnt[s], keys=keys, how=how,
+                max_matches=max_matches, max_probes=max_probes,
+                out_capacity=out_capacity)
+        else:
+            out, cnt, o = _local_sorted_join(
+                lc[s], lcnt[s], rc[s], rcnt[s], keys=keys, how=how,
+                max_matches=max_matches, window=window,
+                out_capacity=out_capacity)
         outs.append(out)
         counts.append(cnt)
         ov[s] = ov[s] + o
@@ -613,7 +724,7 @@ def _join_impl(lc: List[Cols], lcnt, rc: List[Cols], rcnt, *, keys, how,
 @operator("table.join", Abstraction.TABLE)
 def join(left: DistTable, right: DistTable, keys: Sequence[str], *,
          ctx: HPTMTContext, how: str = "inner", max_matches: int = 1,
-         out_capacity: Optional[int] = None,
+         window: int = 4, out_capacity: Optional[int] = None,
          bucket_factor: float = 2.0, method: str = "auto",
          max_probes: Optional[int] = None
          ) -> Tuple[DistTable, torch.Tensor]:
@@ -622,13 +733,16 @@ def join(left: DistTable, right: DistTable, keys: Sequence[str], *,
 
     ``method="hash"`` (the ``"auto"`` choice) is a sort-free
     open-addressing build over the right side plus a counted two-pass
-    probe with late-materialized payload gathers.  ``method="sort"`` (the
-    reference's sort-merge oracle) is not ported yet.  Put the smaller
-    table on the right — it is the build side.
+    probe with late-materialized payload gathers.  ``method="sort"`` is
+    the sort-merge oracle: the right side sorted by its carried hash (one
+    ``lex_order`` a shard), a binary search per left row and a probe
+    window of ``window`` equal-hash candidates.  Put the smaller table on
+    the right — it is the build side of both.
 
     ``max_matches`` bounds the join fan-out per left row; matches beyond
-    it — and rows whose probe chain exceeds ``max_probes`` — are counted
-    in the returned overflow.  A side already hash-partitioned on exactly
+    it — and rows whose probe chain exceeds ``max_probes`` (hash) or whose
+    equal-hash candidates exceed ``window`` (sort) — are counted in the
+    returned overflow.  A side already hash-partitioned on exactly
     ``keys`` skips its shuffle; the output is itself partitioned on
     ``keys``.
     """
@@ -640,8 +754,6 @@ def join(left: DistTable, right: DistTable, keys: Sequence[str], *,
                          f"expected 'auto', 'hash' or 'sort'")
     if max_matches < 1:
         raise ValueError(f"max_matches={max_matches} must be >= 1")
-    if method == "sort":
-        raise NotImplementedError(f"join(method='sort') {_LATER}")
     check_no_reserved(left.column_names)
     check_no_reserved(right.column_names)
     n = ctx.n_shards
@@ -653,7 +765,8 @@ def join(left: DistTable, right: DistTable, keys: Sequence[str], *,
     rc, rcnt = right.shards()
     outs, counts, overflow = _join_impl(
         lc, lcnt, rc, rcnt, keys=tuple(keys), how=how,
-        max_matches=max_matches,
+        method="sort" if method == "sort" else "hash",
+        max_matches=max_matches, window=window,
         max_probes=max_probes or max(64, 2 * max_matches), n_shards=n,
         lbucket=_bucket_capacity(left.capacity, n, bucket_factor),
         rbucket=_bucket_capacity(right.capacity, n, bucket_factor),
@@ -1132,5 +1245,32 @@ intersect = _make_setop(
 @operator("table.cartesian", Abstraction.TABLE)
 def cartesian(a: DistTable, b: DistTable, *, ctx: HPTMTContext,
               out_capacity: Optional[int] = None) -> DistTable:
-    """Cartesian product (Table II) — not ported yet."""
-    raise NotImplementedError(f"cartesian {_LATER}")
+    """Cartesian product (Table II): all-gather the right side, then a
+    local cross join.  Columns come out as ``a_<col>`` / ``b_<col>``.
+
+    As in the reference, rows beyond ``out_capacity`` (default: a shard's
+    whole product, ``a.capacity * n_shards * b.capacity``) are dropped
+    uncounted; the result carries no overflow and no partitioning.
+    """
+    acols, acnt = a.shards()
+    bcols, bcnt = b.shards()
+    acap, bcap = a.capacity, b.capacity
+    # the all-gather moves whole blocks, not rows by key: no exchange
+    bg_cols = {k: allgather([c[k] for c in bcols]).reshape(
+        (-1,) + tuple(bcols[0][k].shape[1:])) for k in bcols[0]}
+    bns = allgather(bcnt)
+    bg = bns.shape[0] * bcap
+    dev = bns.device
+    pos = torch.arange(bg, device=dev)
+    bvalid = (pos % bcap) < bns[pos // bcap]
+    li = torch.arange(acap, device=dev).repeat_interleave(bg)
+    ri = torch.arange(bg, device=dev).repeat(acap)
+    outs, counts = [], []
+    for cols, count in zip(acols, acnt):
+        keep = _mask_for(count, acap)[li] & bvalid[ri]
+        out = {f"a_{k}": v[li] for k, v in cols.items()}
+        out.update({f"b_{k}": v[ri] for k, v in bg_cols.items()})
+        out, cnt, _ = compact_rows(out, keep, out_capacity or acap * bg)
+        outs.append(out)
+        counts.append(cnt)
+    return DistTable.from_shards(outs, counts)

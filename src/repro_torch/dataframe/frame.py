@@ -5,11 +5,14 @@ DataFrame; operators run over the context's shards on its device (the
 card, unless the context says ``device="cpu"``).  ``to_numpy()`` /
 ``to_torch()`` are the bridges to array code (paper Figs 13/17 interop).
 
-The port carries the hash surface (construction, select, project, join,
-groupby, hash repartition, the set operators, scalar aggregates) and the
-ordered surface (``sort_values``, range repartition, ``window(...).agg``,
-``rank``, ``topk``, ``quantile``).  The out-of-core path (``spill=``)
-arrives later; only ``spill=False`` is accepted.
+The port carries the hash surface (construction, select, project, join
+by hash or sort-merge, groupby, hash repartition, the set operators,
+scalar aggregates), the ordered surface (``sort_values``, range
+repartition, ``window(...).agg``, ``rank``, ``topk``, ``quantile``) and
+storage and Arrow interop (``read_parquet``/``read_dataset``,
+``to_parquet``, ``to_hpt``, ``from_arrow``, ``to_arrow``; ``repro_torch.io``).
+The out-of-core path (``spill=``) arrives later; only ``spill=False`` is
+accepted.
 """
 from __future__ import annotations
 
@@ -89,6 +92,85 @@ class DataFrame:
                 f"hold {t.capacity} rows — raise capacity or bucket_factor")
         return cls(DistTable.from_local(t, ctx, capacity=per), ctx)
 
+    # -- storage & Arrow interop (repro_torch.io) -------------------------
+    @classmethod
+    def read_parquet(cls, path: str, ctx: HPTMTContext, *,
+                     columns: Optional[Sequence[str]] = None,
+                     predicate=None, capacity: Optional[int] = None,
+                     bucket_factor: float = 1.0,
+                     allow_narrowing: bool = False,
+                     strict: bool = True) -> "DataFrame":
+        """Scan an on-disk dataset (Parquet or native ``.hpt`` — format
+        auto-detected) with projection + predicate pushdown, onto the
+        context's device.
+
+        A dataset written with ``partition_by`` re-enters with its
+        ``partitioning`` metadata attached when the context's shard count
+        matches, so a following ``join``/``groupby`` on the partition keys
+        moves no data.
+
+        ``strict=False`` records a capacity overflow under
+        ``"scan.capacity"`` in the frame's :attr:`overflow_report`
+        instead of raising — the caller owns the exactness decision.
+        """
+        from ..io import read_dataset
+
+        dt, overflow, _ = read_dataset(
+            path, ctx=ctx, columns=columns, predicate=predicate,
+            capacity=capacity, bucket_factor=bucket_factor,
+            allow_narrowing=allow_narrowing)
+        if strict:
+            cls._check(overflow, "scan")
+        return cls(dt, ctx, _publish_report(
+            OverflowReport().add("scan.capacity", overflow)))
+
+    read_dataset = read_parquet  # format-neutral alias
+
+    def to_parquet(self, path: str, *,
+                   partition_by: Optional[Sequence[str]] = None,
+                   rows_per_group: Optional[int] = None,
+                   format: Optional[str] = "parquet") -> "DataFrame":
+        """Write as a sharded Parquet dataset (``format="hpt"`` for the
+        dependency-free native container; ``None``/"auto" picks parquet
+        when pyarrow is available).
+
+        ``partition_by`` hash-shuffles rows first (elided when already
+        partitioned) and records the layout in the dataset manifest, so a
+        later :meth:`read_parquet` on a matching context restores the
+        shuffle-elision evidence.
+        """
+        from ..io import write_dist_table
+
+        overflow = write_dist_table(self._t, path, ctx=self._ctx,
+                                    format=format, partition_by=partition_by,
+                                    rows_per_group=rows_per_group)
+        self._check(overflow, "to_parquet")
+        return self
+
+    def to_hpt(self, path: str, *,
+               partition_by: Optional[Sequence[str]] = None,
+               rows_per_group: Optional[int] = None) -> "DataFrame":
+        return self.to_parquet(path, partition_by=partition_by,
+                               rows_per_group=rows_per_group, format="hpt")
+
+    @classmethod
+    def from_arrow(cls, arrow_table, ctx: HPTMTContext,
+                   capacity: Optional[int] = None,
+                   bucket_factor: float = 1.0) -> "DataFrame":
+        """Ingest a pyarrow Table (nulls rejected eagerly — the columns
+        then narrow and move as in :meth:`from_dict`)."""
+        from ..io import from_arrow as _from_arrow
+
+        cols, _ = _from_arrow(arrow_table)
+        return cls.from_dict(cols, ctx, capacity=capacity,
+                             bucket_factor=bucket_factor)
+
+    def to_arrow(self):
+        """Materialize valid rows as a pyarrow Table (paper §VI interop)."""
+        from ..io import to_arrow as _to_arrow
+
+        return _to_arrow(self.to_numpy())
+
     # -- metadata ------------------------------------------------------------
     @property
     def columns(self) -> Tuple[str, ...]:
@@ -126,7 +208,9 @@ class DataFrame:
     def join(self, other: "DataFrame", on: Sequence[str], how: str = "inner",
              *, method: str = "auto", max_matches: int = 1,
              spill: object = False, **kw) -> "DataFrame":
-        """Equi-join on ``on``; ``how`` is inner/left/right/outer.
+        """Equi-join on ``on``; ``how`` is inner/left/right/outer;
+        ``method`` is ``"hash"`` (the ``"auto"`` choice) or ``"sort"``
+        (sort-merge, with a probe ``window=`` of equal-hash candidates).
 
         ``max_matches`` bounds the fan-out per left row; matches beyond it
         count as overflow and raise here.

@@ -1,0 +1,97 @@
+"""Shared retry/backoff policy — the one retry loop every layer uses.
+
+:class:`FaultPolicy` carries the whole fault-handling contract of a run
+(reference DESIGN.md §13.4): how many times to retry, how long to back off
+(exponential with *deterministic* jitter — reproducible schedules, no
+wall-clock randomness), and which exception types are retryable vs fatal.  In the port its one
+consumer so far is ``io.scan.ScanSource`` (per-fragment-run read
+retries); the reference's other consumers — ``collect(policy=...)``, the
+spill store, stage checkpoints and the workflow engine — arrive with
+their slices, and the reference's ``checkpoint_dir`` and
+``keep_checkpoints`` fields with the checkpoint slice.
+
+Retry taxonomy: the **fatal** tuple (``ValueError``/``TypeError``/...)
+fails fast — those are programming or corruption errors where a retry
+re-runs the same deterministic failure (``HptIntegrityError`` and
+``CorruptFragmentError`` are ``ValueError`` subclasses precisely so
+corruption is never retried).  Everything else is presumed transient
+(``OSError``, ``RuntimeError``) unless an explicit ``retryable`` tuple
+narrows it.  Exhausted budgets raise :class:`RetryBudgetExceeded`,
+itself classified fatal so nested policies never multiply retries.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import zlib
+from typing import Callable, Optional, Tuple
+
+
+class RetryBudgetExceeded(RuntimeError):
+    """A site failed on every attempt the policy allowed.  ``__cause__``
+    carries the last underlying error.  Classified fatal by every
+    :class:`FaultPolicy`, so an outer retry loop fails fast instead of
+    multiplying the inner budget."""
+
+
+_DEFAULT_FATAL = (ValueError, TypeError, KeyError, AttributeError,
+                  NotImplementedError, AssertionError, RetryBudgetExceeded)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPolicy:
+    """Immutable fault-handling contract; share one per run.
+
+    ``max_retries`` bounds RETRIES — a site gets ``max_retries + 1``
+    attempts.  Backoff before retry ``k`` (0-based) is
+    ``min(backoff_base * backoff_factor**k, backoff_max)`` scaled by a
+    deterministic per-``(site, attempt)`` jitter in ``[1, 1+jitter]``.
+    """
+    max_retries: int = 3
+    backoff_base: float = 0.01
+    backoff_factor: float = 2.0
+    backoff_max: float = 1.0
+    jitter: float = 0.1
+    retryable: Optional[Tuple[type, ...]] = None
+    fatal: Tuple[type, ...] = _DEFAULT_FATAL
+
+    def is_retryable(self, exc: BaseException) -> bool:
+        """Fatal types fail fast; otherwise retryable (or only the
+        explicit ``retryable`` tuple when one is given)."""
+        if isinstance(exc, self.fatal):
+            return False
+        if self.retryable is not None:
+            return isinstance(exc, self.retryable)
+        return True
+
+    def delay(self, attempt: int, site: str = "") -> float:
+        """Backoff before retry ``attempt`` (deterministic: same site +
+        attempt → same delay, across processes and reruns)."""
+        d = min(self.backoff_base * self.backoff_factor ** attempt,
+                self.backoff_max)
+        frac = (zlib.crc32(f"{site}:{attempt}".encode()) % 1000) / 999.0
+        return d * (1.0 + self.jitter * frac)
+
+    def run(self, fn: Callable, *, site: str,
+            sleep: Callable[[float], None] = time.sleep):
+        """Invoke ``fn()`` under this policy's retry loop.
+
+        Raises the original exception for fatal failures and
+        :class:`RetryBudgetExceeded` on exhaustion.  (The reference also
+        counts each retry as ``retry.<site>`` on the active telemetry
+        collector; that waits for the port's telemetry, ROADMAP Queue 1
+        item 9.)
+        """
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            try:
+                return fn()
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not self.is_retryable(e):
+                    raise
+                last = e
+                if attempt < self.max_retries:
+                    sleep(self.delay(attempt, site))
+        raise RetryBudgetExceeded(
+            f"site {site!r}: all {self.max_retries + 1} attempts failed; "
+            f"last error: {type(last).__name__}: {last}") from last

@@ -292,10 +292,3 @@ def test_join_float_keys_bitwise_identity():
     assert_blocks_equal(tout, *jax_blocks(jout))
     assert int(tov) == int(jov)
 
-
-def test_sort_join_waits_for_later_slice():
-    t = DistTable.from_numpy_blocks({"k": LEFT["k"]}, [400], device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        table_ops.join(t, t, ["k"], ctx=CPU1, method="sort")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        table_ops.cartesian(t, t, ctx=CPU1)
