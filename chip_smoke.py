@@ -101,21 +101,62 @@ Phases (every failed check raises; nothing is caught):
    writer does not fsync and the reads follow the writes, so both go
    through the host's page cache and are not a disk's rate), the bytes
    on disk and the re-entry path's wall time;
-13. summary — the script's seconds so far, the ``kernels`` JSON line, the
+13. out of core (``spill=True``, ``budget_rows`` = 2^21 rows a shard), on
+   1 and on 4 virtual shards, each leg one checked, timed run whose
+   ``spill_workdir`` (in a ``tempfile`` directory) already holds a file:
+   the store's run directory, made inside it, holds no ``.tmp`` file when
+   the operator returns and is gone after, and the file is left as it
+   was.  Phase 3's left and right frames
+   through ``join(["k"], spill=True)`` (40 partitions on 1 shard, 10 on
+   4), whose rows equal phase 3's hash-join rows as a multiset; that join
+   output through ``groupby(["k"], sum/count/min/max, spill=True)``, keys,
+   counts, min and max bit for bit against the card's exact per-key
+   answers and sums within ``1e-5 * sum|v|`` of phase 3's float64 oracle;
+   phase 6's events through ``window(["g"], ["t"]).agg(..., rows=32,
+   spill=True)``, every exact lane equal to phase 6's oracle and sums
+   within its tolerance.  0 exchanges in every leg, 0 sorts in the window
+   legs (the host orders each partition), the probe, the segment kernels
+   and ``windowed_scan`` launched on every shard of every pair.  After
+   each leg, each kernel it ran is held against its plain version on the
+   inputs of its first launch in the leg (one pair's shapes, copied as
+   the leg ran; the tolerances of phase 2; ``pair_kernels``, timed).
+   Before the legs, the
+   spill partitioner's host hash (``spill.hashing.np_hash_columns``) is
+   held against the ``hash_partition`` kernel over all 2^25 left keys:
+   ``h1`` and ``h1 % 4`` against the kernel's hash and destination, bit
+   for bit.  Prints per leg the seconds, ``SpillStats``, the run files'
+   write and read GB/s (bytes over the seconds inside ``write_hpt`` /
+   ``read_hpt``, CRC included, through the page cache) and peak GiB;
+14. the lazy planner, on 4 virtual shards then 1: the left frame written
+   as a ``.hpt`` dataset in a ``tempfile`` directory, then
+   ``LazyFrame.read_parquet`` → ``filter(v > 0)`` → ``join(right, k)`` →
+   ``groupby(k)`` → ``window(k, v_sum).agg(..., rows=32)`` against the
+   same chain run eagerly through ``DataFrame``: the planned run's
+   exchanges equal ``predicted_collectives`` and are fewer than the eager
+   chain's on 4 shards (2 against 3; 0 on 1), the rows equal the eager
+   chain's (sums within ``1e-5`` of each, every other lane bit for bit),
+   zero overflow, ``explain()`` deterministic, and hash_partition (4
+   shards), the probe, both segment kernels and ``windowed_scan``
+   launched.  Prints planned and eager wall times (medians of 3 after
+   the checked run) and the scan's alone, with and without the
+   pushed-down filter (medians of 3);
+15. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
 Wall times of phases 3-12 are medians of 3 runs after one checked warm-up
 run; kernel launch counts are those of the checked runs.  ``--profile``
-adds one ``torch.profiler`` run of each of phases 3-10 and of phase 12's
-re-entry path (device busy share, top kernels; a table of each in the
-output directory that ``profile_run`` writes to).
+adds one ``torch.profiler`` run of each of phases 3-10, of phase 12's
+re-entry path and of phase 14's 4-shard planned chain (device busy share,
+top kernels; a table of each in the output directory that
+``profile_run`` writes to).
 Float32 matrix products run in full float32 (TF32 off, PyTorch's
 default, set here).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -1188,6 +1229,461 @@ def storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: out-of-core spill; phase 14: the planned chain
+# ---------------------------------------------------------------------------
+BUDGET_ROWS = 1 << 21
+SPILL_G_AGGS = [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")]
+PLAN_G_AGGS = [("v", "sum"), ("v", "count"), ("v", "min"), ("w", "max")]
+PLAN_W_AGGS = [("v_sum", "sum"), ("v_count", "sum"), ("v_min", "min")]
+
+
+class SpillSpy:
+    """Records each spilled operator's ``SpillStats`` and whether its
+    store held a ``.tmp`` file when the operator returned, and meters the
+    run files' writes and reads (bytes and seconds inside ``write_hpt`` /
+    ``read_hpt``, CRC included) — by wrapping the spill package's entry
+    points and its store's file calls for the duration of a ``with``."""
+
+    def __init__(self):
+        self.results, self.io = [], {}
+
+    def __enter__(self):
+        from repro_torch import spill
+        from repro_torch.spill import store
+
+        self._saved = [(spill, n, getattr(spill, n)) for n in
+                       ("spill_join", "spill_groupby", "spill_window")]
+        self._saved += [(store, n, getattr(store, n))
+                        for n in ("write_hpt", "read_hpt")]
+        self.io = {"write_bytes": 0, "write_s": 0.0, "read_bytes": 0,
+                   "read_s": 0.0}
+        for mod, name, fn in self._saved[:3]:
+            setattr(mod, name, self._op(fn))
+        write_hpt, read_hpt = (fn for _, _, fn in self._saved[3:])
+
+        def metered_write(path, cols, n):
+            t0 = time.perf_counter()
+            header = write_hpt(path, cols, n)
+            self.io["write_s"] += time.perf_counter() - t0
+            self.io["write_bytes"] += sum(b for _, b in
+                                          header["offsets"].values())
+            return header
+
+        def metered_read(path):
+            t0 = time.perf_counter()
+            cols, n = read_hpt(path)
+            self.io["read_s"] += time.perf_counter() - t0
+            self.io["read_bytes"] += sum(v.nbytes for v in cols.values())
+            return cols, n
+
+        store.write_hpt, store.read_hpt = metered_write, metered_read
+        return self
+
+    def _op(self, fn):
+        def spied(*args, **kw):
+            res = fn(*args, **kw)
+            self.results.append(
+                {"stats": dataclasses.asdict(res.stats),
+                 "tmp_files": res.store.leftover_temp_files(),
+                 "root": res.store.root})
+            return res
+        return spied
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+class PairTap:
+    """Keeps a copy of the inputs of the first launch of each table kernel
+    (and op) that a spilled operator makes — one pair's shapes — by
+    wrapping the kernel modules' launchers for the duration of a
+    ``with``; :meth:`compare` then holds each kernel against its plain
+    version on those inputs (launches made after the leg's counts were
+    read, so they do not count)."""
+
+    def __init__(self):
+        from repro_torch.kernels.hash_join import kernel as hjk
+        from repro_torch.kernels.segment_reduce import kernel as srk
+        from repro_torch.kernels.window_scan import kernel as wsk
+
+        self._sites = [(hjk, "probe_cuda"), (srk, "segment_reduce_fused_cuda"),
+                       (srk, "segment_reduce_cuda"),
+                       (wsk, "windowed_scan_cuda")]
+        self.inputs = {}
+
+    def __enter__(self):
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in self._sites]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._tap(name, fn))
+        return self
+
+    def _tap(self, name, fn):
+        def tapped(*args):
+            op = args[3] if name in ("segment_reduce_cuda",
+                                     "windowed_scan_cuda") else None
+            if (name, op) not in self.inputs:
+                self.inputs[(name, op)] = tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)
+            return fn(*args)
+        return tapped
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def compare(self, tag: str):
+        from repro_torch.kernels.hash_join import kernel as hjk
+        from repro_torch.kernels.hash_join import ref as hjr
+        from repro_torch.kernels.segment_reduce import kernel as srk
+        from repro_torch.kernels.segment_reduce import ref as srr
+        from repro_torch.kernels.window_scan import kernel as wsk
+        from repro_torch.kernels.window_scan import ref as wsr
+
+        cases = []
+        for (name, op), a in sorted(self.inputs.items(),
+                                    key=lambda kv: kv[0][0] + str(kv[0][1])):
+            what = f"{tag}: {name}" + (f" {op}" if op else "") + " at a pair"
+            if name == "probe_cuda":
+                kern = lambda: hjk.probe_cuda(*a)  # noqa: E731
+                plain = lambda: hjr.probe_records(*a)  # noqa: E731
+                shape = (f"N={a[2].shape[0]}, S={a[0].shape[0]}, "
+                         f"L={a[4].shape[1]}, M={a[6]}")
+                for x, y in zip(kern(), plain()):
+                    check(torch.equal(x, y), f"{what}: bit-identical")
+                err = 0.0
+            elif name == "windowed_scan_cuda":
+                v, seg, w, _ = a
+                kern = lambda: wsk.windowed_scan_cuda(v, seg, w, op)  # noqa: E731
+                plain = lambda: wsr.windowed_scan(  # noqa: E731
+                    v.contiguous(), seg, w, op)
+                shape = f"({v.shape[0]}, {v.shape[1]}) f32, w={w}"
+                got, exp = kern(), plain()
+                check(torch.equal(got.isnan(), exp.isnan()), f"{what}: NaN")
+                ok = ~exp.isnan()
+                err = 0.0
+                if op != "sum" or w <= wsk.TILE:
+                    check(torch.equal(got.view(torch.int32)[ok],
+                                      exp.view(torch.int32)[ok]),
+                          f"{what}: bit-exact")
+                else:
+                    scale = wsr.windowed_scan(v.abs().nan_to_num()
+                                              .contiguous(), seg, w, "sum")
+                    diff = (got - exp).abs()[ok]
+                    check(bool((diff <= 1e-5 * scale[ok]).all()),
+                          f"{what}: within 1e-5 sum|v|")
+                    err = float(diff.max()) if diff.numel() else 0.0
+            else:
+                v, seg, S = a[:3]
+                fused = name == "segment_reduce_fused_cuda"
+                kern = ((lambda: srk.segment_reduce_fused_cuda(v, seg, S))
+                        if fused else
+                        (lambda: srk.segment_reduce_cuda(v, seg, S, op)))
+                plain = ((lambda: srr.segment_reduce_fused(v, seg, S))
+                         if fused else
+                         (lambda: srr.segment_reduce(v, seg, S, op)))
+                shape = f"N={v.shape[0]}, L={v.shape[1] if fused else 1}, S={S}"
+                got, exp = kern(), plain()
+                if op in ("min", "max"):
+                    check(torch.equal(bit_key(got), bit_key(exp)),
+                          f"{what}: bit for bit")
+                    err = 0.0
+                else:
+                    scale = (srr.segment_reduce_fused(v.abs(), seg, S)
+                             if fused else
+                             srr.segment_reduce(v.abs(), seg, S, "sum"))
+                    diff = (got - exp).abs()
+                    check(bool((diff <= 1e-5 * scale).all()),
+                          f"{what}: within 1e-5 sum|v|")
+                    err = float(diff.max()) if diff.numel() else 0.0
+            cases.append(dict(name=name[:-len("_cuda")], op=op, shape=shape,
+                              max_abs_err=err, ms=cuda_ms(kern),
+                              plain_ms=cuda_ms(plain, reps=2)))
+        self.inputs.clear()
+        return cases
+
+
+KEEP_FILE = "kept.txt"  # a file the caller had in the spill workdir
+
+
+def spill_leg(tag: str, run, launches, workdir: str):
+    """One checked, timed run of a spilled operator: returns its result
+    and the fields to print.  The workdir holds a file before the run;
+    the store's run directory, made inside it, must hold no ``.tmp`` file
+    when the operator returns and be gone once the frame is built, and
+    the file must be the workdir's only entry, unchanged.  Then each
+    kernel the leg ran is held against its plain version on one pair's
+    inputs (``pair_kernels``)."""
+    os.makedirs(workdir)
+    with open(os.path.join(workdir, KEEP_FILE), "w") as f:
+        f.write(tag)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    sorts0 = launches.sorts.n
+    with SpillSpy() as spy, PairTap() as tap:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts, ex = launches.read()
+    sorts = launches.sorts.n - sorts0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(spy.results) == 1, f"{tag}: one spilled operator ran")
+    rec = spy.results[0]
+    check(os.path.dirname(rec["root"]) == workdir and rec["tmp_files"] == [],
+          f"{tag}: run files in {rec['root']}, tmp {rec['tmp_files']}")
+    check(not os.path.exists(rec["root"]), f"{tag}: the run dir is removed")
+    with open(os.path.join(workdir, KEEP_FILE)) as f:
+        check(os.listdir(workdir) == [KEEP_FILE] and f.read() == tag,
+              f"{tag}: the workdir keeps what it held")
+    check(out.overflow_report.is_exact(), f"{tag}: exact")
+    io = spy.io
+    return out, counts, ex, sorts, dict(
+        seconds=seconds, stats=rec["stats"], launches=counts,
+        exchanges=ex, peak_gib=peak,
+        recovered=out.overflow_report.recovered,
+        write_gb_s=io["write_bytes"] / max(io["write_s"], 1e-9) / 1e9,
+        read_gb_s=io["read_bytes"] / max(io["read_s"], 1e-9) / 1e9, **io,
+        pair_kernels=tap.compare(tag))
+
+
+def k_exact_oracle(left_dev):
+    """Counts, min and max of ``v`` per present ``k``, on the card (exact:
+    a count and an order statistic do not depend on the order of adds)."""
+    k, v = left_dev["k"].long(), left_dev["v"]
+    cnt = torch.bincount(k, minlength=RIGHT_ROWS)
+    present = cnt > 0
+    inf = torch.full((RIGHT_ROWS,), float("inf"), device=v.device)
+    mn = inf.scatter_reduce(0, k, v, "amin")
+    mx = (-inf).scatter_reduce(0, k, v, "amax")
+    return {"v_count": cnt[present].cpu().numpy(),
+            "v_min": mn[present].cpu().numpy(),
+            "v_max": mx[present].cpu().numpy()}
+
+
+def sort_rows_on_card(dt, keys):
+    """Valid rows of ``dt`` stably sorted by ``keys`` (most significant
+    first) on the card, then copied to the host."""
+    rows = dt.valid_rows()
+    order = torch.arange(rows[keys[0]].shape[0], device=rows[keys[0]].device)
+    for k in reversed(keys):
+        order = order[torch.argsort(rows[k][order], stable=True)]
+    return {k: v[order].cpu().numpy() for k, v in rows.items()}
+
+
+def host_hash_phase(left, dev):
+    """The spill partitioner's host hash against the ``hash_partition``
+    kernel over all left keys: ``h1`` bit for bit, ``h1 % 4`` equal to the
+    kernel's destination."""
+    from repro_torch.kernels.hash_partition import ops as hpops
+    from repro_torch.spill.hashing import np_hash_columns
+
+    t0 = time.perf_counter()
+    h1, _ = np_hash_columns([left["k"]])
+    host_s = time.perf_counter() - t0
+    keys = torch.from_numpy(left["k"]).to(dev)
+    valid = torch.ones(LEFT_ROWS, dtype=torch.bool, device=dev)
+    dest, _, kh1, _ = hpops.hash_partition([keys], 4, valid,
+                                           return_hashes=True)
+    h1_dev = torch.from_numpy(h1.view(np.int32)).to(dev)
+    check(torch.equal(kh1, h1_dev), "host h1 equals the kernel's h1")
+    check(torch.equal(dest.long(),
+                      torch.from_numpy((h1 % 4).astype(np.int64)).to(dev)),
+          "host h1 % 4 equals the kernel's destination")
+    return {"rows": LEFT_ROWS, "host_hash_s": host_s}
+
+
+def spill_phase(DataFrame, ctx1, ctx4, left, right, events, j1, left_dev,
+                oracle, ord_oracle, launches):
+    """Join, groupby and window out of core under ``budget_rows = 2^21``
+    on 1 and 4 virtual shards, against phases 3 and 6 (phase 13)."""
+    names = sorted(j1)
+    ko = oracle["k"]
+    kx = k_exact_oracle(left_dev)
+    out = {"host_hash": host_hash_phase(left, left_dev["k"].device)}
+    with tempfile.TemporaryDirectory(prefix="hptmt_spill_") as tmp:
+        for ctx, bf in ((ctx1, 1.0), (ctx4, 2.0)):
+            ns = ctx.n_shards
+            sfx = f"{ns}shard" + ("s" if ns > 1 else "")
+            ldf = DataFrame.from_dict(left, ctx, bucket_factor=bf)
+            rdf = DataFrame.from_dict(right, ctx, bucket_factor=bf)
+            wd = os.path.join(tmp, f"join{ns}")
+            js, counts, ex, _, fields = spill_leg(
+                f"spill_join_{sfx}", lambda: ldf.join(
+                    rdf, ["k"], spill=True, budget_rows=BUDGET_ROWS,
+                    spill_workdir=wd), launches, wd)
+            del ldf, rdf
+            pairs = fields["stats"]["pairs"]
+            check(ex == 0, f"spill join {sfx}: {ex} exchanges")
+            check(counts["probe"] >= pairs * ns,
+                  f"spill join {sfx}: probe on every shard of every pair "
+                  f"({counts})")
+            rows = js.table.valid_rows()
+            check(torch.equal(canonical(rows, names), canonical(j1, names)),
+                  f"spill join {sfx}: the rows of phase 3's hash join")
+            del rows
+            out[f"spill_join_{sfx}"] = fields
+
+            wd = os.path.join(tmp, f"groupby{ns}")
+            g, counts, ex, _, fields = spill_leg(
+                f"spill_groupby_{sfx}", lambda: js.groupby(
+                    ["k"], SPILL_G_AGGS, spill=True,
+                    budget_rows=BUDGET_ROWS, spill_workdir=wd),
+                launches, wd)
+            del js
+            check(ex == 0, f"spill groupby {sfx}: {ex} exchanges")
+            pairs = fields["stats"]["pairs"]
+            check(counts["segment_reduce_fused"] >= pairs * ns
+                  and counts["segment_reduce"] >= 2 * pairs * ns,
+                  f"spill groupby {sfx}: segment kernels (sums, min and "
+                  f"max) on every shard of every pair ({counts})")
+            got = sort_rows_on_card(g.table, ["k"])
+            del g
+            check(np.array_equal(got["k"], ko["k"]),
+                  f"spill groupby {sfx}: keys")
+            for key in ("v_count", "v_min", "v_max"):
+                check(np.array_equal(got[key], kx[key]),
+                      f"spill groupby {sfx}: {key}")
+            check_close(got["v_sum"], ko["v_sum"], ko["v_abs"],
+                        f"spill groupby {sfx}: v_sum")
+            fields["groups"] = int(got["k"].shape[0])
+            del got
+            out[f"spill_groupby_{sfx}"] = fields
+
+            edf = DataFrame.from_dict(events, ctx, bucket_factor=bf)
+            wd = os.path.join(tmp, f"window{ns}")
+            w, counts, ex, sorts, fields = spill_leg(
+                f"spill_window_{sfx}", lambda: edf.window(["g"], ["t"]).agg(
+                    W_AGGS, rows=ROLL, spill=True, budget_rows=BUDGET_ROWS,
+                    spill_workdir=wd), launches, wd)
+            del edf
+            check(ex == 0 and sorts == 0,
+                  f"spill window {sfx}: {ex} exchanges, {sorts} sorts")
+            check(counts["windowed_scan"] >= fields["stats"]["pairs"] * ns,
+                  f"spill window {sfx}: windowed_scan on every shard of "
+                  f"every pair ({counts})")
+            got = sort_rows_on_card(w.table, ["g", "t"])
+            del w
+            for k, want in ord_oracle["sorted"].items():
+                check(np.array_equal(got[k], want),
+                      f"spill window {sfx}: column {k}")
+            for k, want in ord_oracle["roll"].items():
+                check(np.array_equal(got[k], want),
+                      f"spill window {sfx}: {k}")
+            for k, (want, scale) in ord_oracle["close"].items():
+                check_close(got[k], want, scale, f"spill window {sfx}: {k}")
+            fields["sorts"] = sorts
+            del got
+            out[f"spill_window_{sfx}"] = fields
+    return out
+
+
+def planned_chain(DataFrame, LazyFrame, pred, ctx, root, rdf, lazy: bool):
+    """scan → filter(v > 0) → join(right, k) → groupby(k) →
+    window(k, v_sum, rows=32), planned or eager."""
+    if lazy:
+        out = (LazyFrame.read_parquet(root, ctx, bucket_factor=2.0)
+               .filter([pred("v", ">", 0.0)]).join(rdf.lazy(), ["k"])
+               .groupby(["k"], PLAN_G_AGGS)
+               .window(["k"], ["v_sum"]).agg(PLAN_W_AGGS, rows=ROLL)
+               .collect())
+    else:
+        out = (DataFrame.read_dataset(root, ctx, bucket_factor=2.0)
+               .select(pred("v", ">", 0.0).mask).join(rdf, ["k"])
+               .groupby(["k"], PLAN_G_AGGS)
+               .window(["k"], ["v_sum"]).agg(PLAN_W_AGGS, rows=ROLL))
+    torch.cuda.synchronize()
+    return out
+
+
+def plan_phase(DataFrame, ctx1, ctx4, left, right, launches, profile: bool):
+    """The lazy planner's chain against the same chain run eagerly, on 4
+    virtual shards then 1 (phase 14)."""
+    from repro_torch.io import pred, read_dataset
+    from repro_torch.plan import LazyFrame
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="hptmt_plan_") as tmp:
+        root = os.path.join(tmp, "left")
+        DataFrame.from_dict(left, ctx4).to_hpt(root)
+        for ctx, bf in ((ctx4, 2.0), (ctx1, 1.0)):
+            ns = ctx.n_shards
+            tag = f"planned_{ns}shard" + ("s" if ns > 1 else "")
+            rdf = DataFrame.from_dict(right, ctx, bucket_factor=bf)
+            lf = (LazyFrame.read_parquet(root, ctx, bucket_factor=2.0)
+                  .filter([pred("v", ">", 0.0)]).join(rdf.lazy(), ["k"])
+                  .groupby(["k"], PLAN_G_AGGS)
+                  .window(["k"], ["v_sum"]).agg(PLAN_W_AGGS, rows=ROLL))
+            text = lf.explain()
+            check(text == lf.explain(), f"{tag}: explain() is deterministic")
+            predicted = lf.physical_plan().predicted_collectives
+
+            def run(lazy):
+                return planned_chain(DataFrame, LazyFrame, pred, ctx, root,
+                                     rdf, lazy)
+
+            launches.reset()
+            planned = run(True)
+            counts, ex_p = launches.read()
+            launches.reset()
+            eager = run(False)
+            _, ex_e = launches.read()
+            check(ex_p == predicted, f"{tag}: {ex_p} exchanges, predicted "
+                  f"{predicted}")
+            check(ex_p < ex_e if ns > 1 else ex_p == ex_e == 0,
+                  f"{tag}: planned {ex_p} against eager {ex_e} exchanges")
+            check(planned.overflow_report.is_exact()
+                  and eager.overflow_report.is_exact(), f"{tag}: exact")
+            need = ["probe", "segment_reduce_fused", "segment_reduce",
+                    "windowed_scan"] + (["hash_partition"] if ns > 1 else [])
+            check(all(counts[k] > 0 for k in need),
+                  f"{tag}: kernels launched {counts}")
+            p = sort_rows_on_card(planned.table, ["k"])
+            e = sort_rows_on_card(eager.table, ["k"])
+            check(sorted(p) == sorted(e), f"{tag}: columns {sorted(p)}")
+            for k in p:
+                if k in ("v_sum", "v_sum_sum"):  # v > 0: |sum| = sum|v|
+                    check_close(p[k], e[k].astype(np.float64),
+                                np.abs(e[k]).astype(np.float64),
+                                f"{tag}: {k}")
+                else:
+                    check(np.array_equal(bits_np(p[k]), bits_np(e[k])),
+                          f"{tag}: {k} equals the eager chain's")
+            rows = int(p["k"].shape[0])
+            del planned, eager, p, e
+            runs_p = timed_runs(lambda: run(True))
+            runs_e = timed_runs(lambda: run(False))
+            # the planned scan evaluates the pushed-down filter on the
+            # host while reading; the eager chain filters on the card
+            def scan(pr):
+                read_dataset(root, ctx=ctx, bucket_factor=2.0, predicate=pr)
+                torch.cuda.synchronize()
+
+            scans = {f"scan_{name}_s": statistics.median(
+                timed_runs(lambda: scan(pr)))
+                for name, pr in (("all", None),
+                                 ("filtered", pred("v", ">", 0.0)))}
+            if profile and ns > 1:
+                profile_run(tag, lambda: run(True))
+            out[tag] = dict(
+                exchanges=ex_p, predicted=predicted, eager_exchanges=ex_e,
+                launches=counts, rows=rows,
+                steps=[f"{s.op}:{s.strategy}:{s.a2a}"
+                       for s in lf.physical_plan().steps],
+                planned_median_s=statistics.median(runs_p),
+                eager_median_s=statistics.median(runs_e),
+                planned_runs_s=runs_p, eager_runs_s=runs_e, **scans)
+            del rdf, lf
+    return out
+
+
+def bits_np(a: np.ndarray) -> np.ndarray:
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
 def sass_hgmma(lib) -> dict:
     """Count of ``HGMMA`` (wgmma) instructions in the SASS of each kernel
     of the built library that has any."""
@@ -1389,7 +1885,6 @@ def main() -> int:
     # 10. the sort-merge join on the main path, 1 and 4 shards
     sort_join_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
                     launches, j1, args.profile)
-    del j1
 
     # 11. cartesian product, 1 and 4 shards
     cartesian_phase(DataFrame, ctx1, ctx4, args.seed, dev, launches)
@@ -1400,7 +1895,19 @@ def main() -> int:
                                      args.profile).items():
         emit(tag, **fields)
 
-    # 13. summary
+    # 13. out of core: spilled join, groupby and window, 1 and 4 shards
+    for tag, fields in spill_phase(DataFrame, ctx1, ctx4, left, right,
+                                   events, j1, left_dev, oracle, ord_oracle,
+                                   launches).items():
+        emit(tag, **fields)
+    del j1, ord_oracle
+
+    # 14. the lazy planner's chain against the eager chain, 4 then 1 shard
+    for tag, fields in plan_phase(DataFrame, ctx1, ctx4, left, right,
+                                  launches, args.profile).items():
+        emit(tag, **fields)
+
+    # 15. summary
     kernels = []
     for r in krows:
         name = r["name"]

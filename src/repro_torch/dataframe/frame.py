@@ -10,9 +10,10 @@ by hash or sort-merge, groupby, hash repartition, the set operators,
 scalar aggregates), the ordered surface (``sort_values``, range
 repartition, ``window(...).agg``, ``rank``, ``topk``, ``quantile``) and
 storage and Arrow interop (``read_parquet``/``read_dataset``,
-``to_parquet``, ``to_hpt``, ``from_arrow``, ``to_arrow``; ``repro_torch.io``).
-The out-of-core path (``spill=``) arrives later; only ``spill=False`` is
-accepted.
+``to_parquet``, ``to_hpt``, ``from_arrow``, ``to_arrow``; ``repro_torch.io``),
+the out-of-core path (``spill=`` on ``join``, ``groupby`` and
+``Window.agg``; ``repro_torch.spill``) and the lazy planner
+(``lazy()``; ``repro_torch.plan``).
 """
 from __future__ import annotations
 
@@ -35,17 +36,24 @@ def _publish_report(report: OverflowReport) -> OverflowReport:
 
 
 def _spill_mode(spill: object) -> object:
-    """Only the in-memory path is ported: ``spill`` must be False."""
-    if spill is not False:
-        raise NotImplementedError(
-            f"spill={spill!r}: the out-of-core path is not ported yet; "
-            f"only spill=False (in-memory, overflow raises) is supported")
+    """Validate the ``spill=`` tri-state eagerly, naming the bad value."""
+    if spill not in (False, True, "auto"):
+        raise ValueError(
+            f"spill={spill!r}: expected False (in-memory, overflow "
+            f"raises), 'auto' (spill when the budget or an overflow "
+            f"demands it), or True (force the out-of-core path)")
     return spill
 
 
 class DataFrame:
-    """Every operator's overflow raises :class:`OverflowError`; the
-    lineage's :attr:`overflow_report` is the exactness certificate."""
+    """``spill=`` on join/groupby/window selects the out-of-core path
+    (reference DESIGN.md §10): ``False`` keeps the all-in-memory behavior
+    (overflow raises), ``"auto"`` pre-checks the input against
+    ``budget_rows`` and — when the in-memory attempt still overflows —
+    retries once through the spill engine, and ``True`` forces spill.
+    Every operator's overflow lands in :attr:`overflow_report`, the one
+    exactness certificate for the whole lineage.
+    """
 
     def __init__(self, table: DistTable, ctx: HPTMTContext,
                  report: Optional[OverflowReport] = None):
@@ -207,28 +215,77 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on: Sequence[str], how: str = "inner",
              *, method: str = "auto", max_matches: int = 1,
-             spill: object = False, **kw) -> "DataFrame":
+             spill: object = False, budget_rows: Optional[int] = None,
+             spill_workdir: Optional[str] = None, **kw) -> "DataFrame":
         """Equi-join on ``on``; ``how`` is inner/left/right/outer;
         ``method`` is ``"hash"`` (the ``"auto"`` choice) or ``"sort"``
         (sort-merge, with a probe ``window=`` of equal-hash candidates).
 
         ``max_matches`` bounds the fan-out per left row; matches beyond it
         count as overflow and raise here.
+
+        ``spill="auto"`` spills to disk when either input exceeds
+        ``n_shards * budget_rows`` rows (or, lacking a budget, when the
+        in-memory attempt overflows); ``spill=True`` forces the
+        out-of-core path.  The runs go to a fresh ``tempfile`` directory,
+        made under ``spill_workdir`` when one is given (else ``TMPDIR``)
+        and removed afterwards; nothing else in ``spill_workdir`` is
+        touched.  Extra keyword arguments apply to the in-memory path
+        only.
         """
+        from ..spill import should_spill, spill_join
+
         _spill_mode(spill)
+        budget = budget_rows or max(self._t.capacity, other._t.capacity)
+        ns = self._ctx.n_shards
+
+        def _spilled() -> "DataFrame":
+            return self._from_spill(
+                spill_join(self._t, other._t, on, ctx=self._ctx,
+                           budget_rows=budget, how=how, method=method,
+                           max_matches=max_matches,
+                           max_probes=kw.get("max_probes"),
+                           workdir=spill_workdir), other)
+
+        if spill is True or (spill == "auto" and budget_rows is not None and
+                             (should_spill(len(self), ns, budget_rows) or
+                              should_spill(len(other), ns, budget_rows))):
+            return _spilled()
         out, ov = table_ops.join(self._t, other._t, on, ctx=self._ctx,
                                  how=how, method=method,
                                  max_matches=max_matches, **kw)
+        if int(ov) != 0 and spill == "auto":
+            return _spilled()
         self._check(ov, "join")
         return self._child(out, other)
 
     def groupby(self, keys: Sequence[str],
                 aggs: Sequence[Tuple[str, str]], *,
-                spill: object = False, **kw) -> "DataFrame":
-        """Hash-aggregate ``aggs`` per distinct ``keys`` combination."""
+                spill: object = False, budget_rows: Optional[int] = None,
+                spill_workdir: Optional[str] = None, **kw) -> "DataFrame":
+        """Hash-aggregate ``aggs`` per distinct ``keys`` combination.
+
+        ``spill="auto"``/``spill=True``/``budget_rows`` select the
+        out-of-core path exactly as in :meth:`join`.
+        """
+        from ..spill import should_spill, spill_groupby
+
         _spill_mode(spill)
+        budget = budget_rows or self._t.capacity
+
+        def _spilled() -> "DataFrame":
+            return self._from_spill(
+                spill_groupby(self._t, keys, aggs, ctx=self._ctx,
+                              budget_rows=budget, workdir=spill_workdir))
+
+        if spill is True or (spill == "auto" and budget_rows is not None and
+                             should_spill(len(self), self._ctx.n_shards,
+                                          budget_rows)):
+            return _spilled()
         out, ov = table_ops.groupby_aggregate(self._t, keys, aggs,
                                               ctx=self._ctx, **kw)
+        if int(ov) != 0 and spill == "auto":
+            return _spilled()
         self._check(ov, "groupby")
         return self._child(out)
 
@@ -315,6 +372,22 @@ class DataFrame:
     def agg(self, column: str, op: str):
         return float(table_ops.aggregate(self._t, column, op, ctx=self._ctx))
 
+    # -- lazy planning (repro_torch.plan) ----------------------------------
+    def lazy(self, name: str = "table"):
+        """Start a lazy expression graph rooted at this frame's table.
+
+        Chained operators on the returned :class:`~repro_torch.plan.
+        LazyFrame` only build a logical plan; ``.collect()`` optimizes it
+        (predicate/projection pushdown, chained exchange elision, join
+        reordering, global layout choice) and runs the whole pipeline as
+        one program — the eager chain's rows, never more exchanges.
+        ``.explain()`` shows the plan without running it.
+        """
+        from ..plan import LazyFrame
+        from ..plan.logical import source
+
+        return LazyFrame(source(self._t, name), self._ctx, self._report)
+
     # -- interop bridges ----------------------------------------------------
     def to_numpy(self) -> Dict[str, np.ndarray]:
         return self._t.to_numpy()
@@ -327,7 +400,7 @@ class DataFrame:
         names = columns or self._t.column_names
         return torch.stack([rows[c].to(torch.float32) for c in names], dim=1)
 
-    # -- overflow plumbing ------------------------------------------------
+    # -- spill / overflow plumbing ------------------------------------------
     def _child(self, out: DistTable, *others: "DataFrame") -> "DataFrame":
         """Wrap an operator result, carrying the lineage's overflow report."""
         rep = OverflowReport().merge(self._report)
@@ -335,12 +408,33 @@ class DataFrame:
             rep.merge(o._report)
         return DataFrame(out, self._ctx, _publish_report(rep))
 
+    def _from_spill(self, res, *others: "DataFrame") -> "DataFrame":
+        """Materialize a spilled operator's chunk stream into a DataFrame.
+
+        The spill store is closed (scratch dir removed) before returning;
+        any residual loss in the spill report — e.g. join fan-out beyond
+        ``max_matches``, which is a semantic cap, not a memory one —
+        still raises, exactly as the in-memory path would.
+        """
+        from ..core.dataflow import _concat_chunks
+
+        with res:
+            chunks = list(res.chunks()) or [res.empty_chunk()]
+            res.report.assert_exact()
+            rep = OverflowReport().merge(self._report)
+            for o in others:
+                rep.merge(o._report)
+            rep.merge(res.report)
+            out = _concat_chunks(chunks, self._ctx)
+        return DataFrame(out, self._ctx, _publish_report(rep))
+
     @staticmethod
     def _check(overflow, op: str) -> None:
         if int(overflow) != 0:
             raise OverflowError(
                 f"{op}: {int(overflow)} rows overflowed static capacity — "
-                "re-run with a larger out_capacity/bucket_factor")
+                "re-run with a larger out_capacity/bucket_factor, or pass "
+                "spill='auto' to recover out-of-core")
 
 
 class Window:
@@ -354,7 +448,8 @@ class Window:
         self._ascending = ascending
 
     def agg(self, aggs, rows: Optional[int] = None, *,
-            spill: object = False, **kw) -> DataFrame:
+            spill: object = False, budget_rows: Optional[int] = None,
+            spill_workdir: Optional[str] = None, **kw) -> DataFrame:
         """Evaluate window aggregates; returns the DataFrame plus one
         column per agg (rows never move or drop).
 
@@ -364,11 +459,32 @@ class Window:
         ``(None, "row_number"/"rank")``.  Already-sorted inputs
         (``sort_values`` on ``partition_by + order_by``) evaluate with no
         data movement; a truncated window raises :class:`OverflowError`.
+
+        ``spill="auto"``/``spill=True``/``budget_rows`` select the
+        out-of-core path: window partitions spill whole to disk and
+        re-enter pre-sorted, so no window is ever truncated by the
+        cross-shard halo.
         """
+        from ..spill import should_spill, spill_window
+
         df = self._df
         _spill_mode(spill)
+        budget = budget_rows or df._t.capacity
+
+        def _spilled() -> DataFrame:
+            return df._from_spill(spill_window(
+                df._t, self._partition_by, self._order_by, aggs,
+                ctx=df._ctx, budget_rows=budget, rows=rows,
+                ascending=self._ascending, workdir=spill_workdir))
+
+        if spill is True or (spill == "auto" and budget_rows is not None and
+                             should_spill(len(df), df._ctx.n_shards,
+                                          budget_rows)):
+            return _spilled()
         out, ov = table_ops.window_aggregate(
             df._t, self._partition_by, self._order_by, aggs,
             ctx=df._ctx, rows=rows, ascending=self._ascending, **kw)
+        if int(ov) != 0 and spill == "auto":
+            return _spilled()
         DataFrame._check(ov, "window")
         return df._child(out)

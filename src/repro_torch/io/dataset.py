@@ -67,6 +67,22 @@ class Dataset:
     def num_rows(self) -> int:
         return sum(f.rows for f in self.fragments)
 
+    def stat_bounds(self, column: str) -> Optional[Tuple]:
+        """Global ``(min, max)`` for ``column`` across all fragments.
+
+        ``None`` when any fragment lacks stats for the column — callers
+        (the query planner's cardinality estimator) must treat that as
+        "unknown", the same conservatism as fragment pruning.
+        """
+        lo = hi = None
+        for f in self.fragments:
+            s = f.stats.get(column)
+            if s is None:
+                return None
+            lo = s[0] if lo is None else min(lo, s[0])
+            hi = s[1] if hi is None else max(hi, s[1])
+        return None if lo is None else (lo, hi)
+
 
 def _default_format(fmt: Optional[str]) -> str:
     if fmt in FORMATS:

@@ -243,6 +243,13 @@ class ScanSource:
     def partitioning(self) -> Partitioning:
         return self._partitioning
 
+    @property
+    def planned_rows(self) -> int:
+        """Rows in fragments that survived pruning (metadata only; an
+        upper bound on materialized rows — the residual filter can only
+        shrink it).  Feeds the query planner's cardinality estimates."""
+        return sum(f.rows for fr in self._by_shard for f in fr)
+
     # -- materialization ----------------------------------------------------
     def _reset_io_stats(self) -> None:
         """I/O counters are per-materialization, not cumulative — calling

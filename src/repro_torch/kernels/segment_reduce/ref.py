@@ -64,7 +64,7 @@ def segment_reduce_fused(values: torch.Tensor, segment_ids: torch.Tensor,
         # prefix sums along the innermost dimension: a CUDA scan along the
         # outer dimension of a narrow (n, L) tensor is nearly serial
         cs = torch.cumsum(x.t().contiguous(), dim=1)
-        cs = torch.cat([torch.zeros_like(cs[:, :1]), cs], dim=1)
+        cs = torch.cat([cs.new_zeros((cs.shape[0], 1)), cs], dim=1)
         return (cs[:, end] - cs[:, start]).t()
 
     finite = torch.isfinite(v)

@@ -1,29 +1,38 @@
 """Unified chaos-injection registry (reference DESIGN.md §13.3).
 
 One module-level registry of *armed* faults, addressed by **site** — a
-dotted name for an injection point the runtime passes through.  The
-port has one so far, ``scan.read`` (per fragment-run read in
-``io.scan``); the reference's ``spill.write``, ``plan.step.<idx>`` and
-``checkpoint.commit`` arrive with the spill, planner and checkpoint
-slices, and with them the kinds only they use (``disk_full``,
-``partial_write``, ``crash``) and the ``HPTMT_SPILL_FAULT`` alias.
-Sites are plain strings, so arming one that nothing fires yet is
-harmless.
+dotted name for an injection point the runtime passes through::
+
+    scan.read            per fragment-run read in ``io.scan``
+    spill.write          per run-file write in ``spill.store``
+    plan.step.<idx>      entry of physical plan step ``<idx>``
+
+The reference's fourth site, ``checkpoint.commit``, arrives with the
+checkpoint slice (ROADMAP Queue 1 item 9), and with it the ``crash`` kind
+that only its kill-and-resume tests use.  Sites are plain strings, so
+arming one that nothing fires yet is harmless.
 
 Every site calls :func:`fire` with its name; when nothing is armed the
 call is a cheap no-op (two env lookups, no allocation), so production
 paths carry no chaos overhead.  An armed fault counts down ``nth``
-occurrences at its site, raises on the ``nth``, then **disarms** — so a retry under the same environment succeeds, which
-is exactly the contract the retry/backoff layer is tested against.
+occurrences at its site, raises on the ``nth``, then **disarms** — so a
+retry under the same environment succeeds, which is exactly the contract
+the retry/backoff layer is tested against.
 
 Arming is programmatic (:func:`arm`, :func:`arm_schedule` for seeded
 deterministic schedules) or via environment::
 
-    HPTMT_FAULTS="scan.read:io_error:2;scan.read:fatal:5"
+    HPTMT_FAULTS="scan.read:io_error:2;spill.write:disk_full:1"
+
+The legacy ``HPTMT_SPILL_FAULT="<point>:<n>"`` knob is kept as a
+back-compat alias for site ``spill.write`` (``point`` one of
+``disk_full`` / ``partial_write``) with identical semantics.
 
 Fault kinds:
 
   io_error       raise :class:`InjectedFault` (``EIO``) — retryable
+  disk_full      raise :class:`InjectedFault` (``ENOSPC``) — retryable
+  partial_write  tear a half-written ``<path>.tmp`` then raise ``EIO``
   fatal          raise :class:`FatalInjectedFault` (a ``ValueError``) —
                  the typed-fatal family, must fail fast, never retry
 
@@ -40,7 +49,9 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 FAULTS_ENV = "HPTMT_FAULTS"
-KINDS = ("io_error", "fatal")
+SPILL_FAULT_ENV = "HPTMT_SPILL_FAULT"
+SPILL_FAULT_POINTS = ("disk_full", "partial_write")
+KINDS = ("io_error", "disk_full", "partial_write", "fatal")
 
 
 class InjectedFault(OSError):
@@ -65,7 +76,7 @@ class _Arm:
 # change mid-run re-arms the env set without clobbering test-armed faults
 _prog_arms: List[_Arm] = []
 _env_arms: List[_Arm] = []
-_env_cache: Dict[str, Optional[str]] = {"faults": None}
+_env_cache: Dict[str, Optional[str]] = {"faults": None, "spill": None}
 _counts: Dict[str, int] = {}
 
 
@@ -89,16 +100,29 @@ def _parse_env_faults(spec: str) -> List[_Arm]:
     return arms
 
 
+def _parse_env_spill(spec: str) -> List[_Arm]:
+    point, _, count = spec.partition(":")
+    if point not in SPILL_FAULT_POINTS:
+        raise ValueError(
+            f"{SPILL_FAULT_ENV}={spec!r}: unknown fault point {point!r}; "
+            f"expected one of {SPILL_FAULT_POINTS}")
+    return [_Arm("spill.write", point, int(count) if count else 1)]
+
+
 def _sync_env() -> None:
     """Re-arm from the environment iff it changed since the last look —
     keeps the one-shot "fired" memory stable under an unchanged env."""
     faults = os.environ.get(FAULTS_ENV)
-    if faults == _env_cache["faults"]:
+    spill = os.environ.get(SPILL_FAULT_ENV)
+    if faults == _env_cache["faults"] and spill == _env_cache["spill"]:
         return
     _env_cache["faults"] = faults
+    _env_cache["spill"] = spill
     _env_arms.clear()
     if faults:
         _env_arms.extend(_parse_env_faults(faults))
+    if spill:
+        _env_arms.extend(_parse_env_spill(spill))
 
 
 def arm(site: str, kind: str, nth: int = 1) -> None:
@@ -144,6 +168,7 @@ def reset() -> None:
     environment on the next :func:`fire` (test fixtures call this)."""
     clear()
     _env_cache["faults"] = None
+    _env_cache["spill"] = None
 
 
 def fires(site: Optional[str] = None) -> int:
@@ -159,14 +184,22 @@ def _trigger(a: _Arm, path: Optional[str]) -> None:
     if a.kind == "fatal":
         raise FatalInjectedFault(
             f"injected fatal fault at {a.site} ({where})")
+    if a.kind == "disk_full":
+        raise InjectedFault(errno.ENOSPC, "injected disk-full", where)
+    if a.kind == "partial_write":
+        if path is not None:  # tear a half-written tmp, then die mid-write
+            with open(path + ".tmp", "wb") as f:
+                f.write(b"HPT1\x00")
+        raise InjectedFault(errno.EIO, "injected partial write", where)
     raise InjectedFault(errno.EIO, "injected io error", where)
 
 
 def fire(site: str, path: Optional[str] = None) -> None:
     """Injection point: no-op unless a matching fault is armed.
 
-    Every IO/exec layer calls this with its site name; ``path`` (the
-    file the site touches) names the failure in the raised error.
+    Every IO/exec layer calls this with its site name; ``path`` (when
+    the site writes a file) lets ``partial_write`` tear ``<path>.tmp``
+    exactly like a mid-write crash would.
     """
     _sync_env()
     if not _prog_arms and not _env_arms:

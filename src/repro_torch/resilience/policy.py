@@ -3,12 +3,13 @@
 :class:`FaultPolicy` carries the whole fault-handling contract of a run
 (reference DESIGN.md §13.4): how many times to retry, how long to back off
 (exponential with *deterministic* jitter — reproducible schedules, no
-wall-clock randomness), and which exception types are retryable vs fatal.  In the port its one
-consumer so far is ``io.scan.ScanSource`` (per-fragment-run read
-retries); the reference's other consumers — ``collect(policy=...)``, the
-spill store, stage checkpoints and the workflow engine — arrive with
-their slices, and the reference's ``checkpoint_dir`` and
-``keep_checkpoints`` fields with the checkpoint slice.
+wall-clock randomness), and which exception types are retryable vs fatal.  In the port its
+consumers are ``io.scan.ScanSource`` (per-fragment-run read retries) and
+``spill.store.SpillStore`` (per-run write retries); the reference's
+others — ``collect(policy=...)``, stage checkpoints and the workflow
+engine — arrive with the runtime services (ROADMAP Queue 1 item 9), and
+the reference's ``checkpoint_dir`` and ``keep_checkpoints`` fields with
+them.
 
 Retry taxonomy: the **fatal** tuple (``ValueError``/``TypeError``/...)
 fails fast — those are programming or corruption errors where a retry

@@ -210,9 +210,12 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
 
 
 def test_later_slices_raise():
+    # spill= and lazy() are ported; the runtime services are a later slice
     df = DataFrame.from_dict(LEFT, CPU1)
-    with pytest.raises(NotImplementedError, match="spill"):
-        df.groupby(["g"], [("v", "sum")], spill="auto")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        df.lazy().groupby(["g"], [("v", "sum")]).collect(telemetry=object())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        df.lazy().explain(analyze=True)
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -223,6 +226,8 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.configs, repro_torch.models.params\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
             "import repro_torch.io, repro_torch.resilience\n"
+            "import repro_torch.spill, repro_torch.plan\n"
+            "import repro_torch.core.dataflow\n"
             "for p in ('hash_partition', 'hash_join', 'segment_reduce',\n"
             "          'window_scan', 'flash_attention'):\n"
             "    for m in ('ref', 'kernel', 'ops'):\n"

@@ -526,6 +526,15 @@ def test_fault_kinds_map_to_exception_families(tmp_path):
     with pytest.raises(tres.InjectedFault) as e:
         tres.fire("x", path=p)
     assert e.value.errno == errno.EIO and e.value.filename == p
+    tres.arm("x", "disk_full")
+    with pytest.raises(tres.InjectedFault) as e:
+        tres.fire("x")
+    assert e.value.errno == errno.ENOSPC
+    tres.arm("x", "partial_write")
+    with pytest.raises(tres.InjectedFault) as e:
+        tres.fire("x", path=p)
+    assert e.value.errno == errno.EIO
+    assert os.path.exists(p + ".tmp")  # torn half-write left behind
     with pytest.raises(ValueError, match="unknown fault kind"):
         tres.arm("x", "meteor_strike")
     with pytest.raises(ValueError, match="nth"):
@@ -547,6 +556,12 @@ def test_env_arming(monkeypatch):
     tres.reset()
     with pytest.raises(ValueError, match="unknown fault kind"):
         tres.fire("scan.read")
+    monkeypatch.setenv(tres.FAULTS_ENV, "")
+    monkeypatch.setenv(tres.SPILL_FAULT_ENV, "disk_full:1")
+    tres.reset()
+    with pytest.raises(tres.InjectedFault):  # legacy knob → spill.write
+        tres.fire("spill.write")
+    tres.fire("spill.write")
 
 
 def test_arm_schedule_matches_the_reference():

@@ -332,8 +332,20 @@ def test_frame_ordered_surface_vs_jax():
     assert tdf.quantile("v", 0.5) == jdf.quantile("v", 0.5)
     q = tdf.quantile("v", [0.25, 0.75])
     assert isinstance(q, np.ndarray) and q.shape == (2,)
-    with pytest.raises(NotImplementedError, match="spill"):
-        tdf.window(["g"], ["t"]).agg(AGGS, rows=5, spill="auto")
+    # the spill path (ported since): "auto" without a budget stays in
+    # memory; True gives the JAX spill's rows in the same places
+    auto = tdf.window(["g"], ["t"]).agg(AGGS, rows=5, spill="auto")
+    assert_blocks_equal(auto.table, *jax_blocks(
+        jdf.window(["g"], ["t"]).agg(AGGS, rows=5).table))
+    spilled = tdf.window(["g"], ["t"]).agg(AGGS, rows=5, spill=True,
+                                           budget_rows=64)
+    jspilled = jdf.window(["g"], ["t"]).agg(AGGS, rows=5, spill=True,
+                                            budget_rows=64)
+    assert spilled.overflow_report.total_recovered == len(tdf)
+    got, want = spilled.to_numpy(), jspilled.to_numpy()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(bits(got[k]), bits(want[k]), err_msg=k)
 
 
 def test_window_truncation_raises_in_the_frame():
