@@ -140,22 +140,65 @@ Phases (every failed check raises; nothing is caught):
    launched.  Prints planned and eager wall times (medians of 3 after
    the checked run) and the scan's alone, with and without the
    pushed-down filter (medians of 3);
-15. summary — the script's seconds so far, the ``kernels`` JSON line, the
+15. the TSet dataflow, on 1 and 4 virtual shards: phases 3 and 6's
+   frames as ``TSet.from_table`` in 8 chunks (2^22 rows a chunk on 1
+   shard; 2^21 a shard on 4, phase 4's head-room of 2), through
+   ``select(v > 0)`` and the combiner ``groupby`` by ``k`` (~7.3 M groups)
+   and by ``g``, ``join(right, k)`` then ``groupby(g)``, ``reduce("v",
+   "sum")``, ``window(["g"], ["t"], rows=32)`` and ``topk("v", 1000)`` of
+   the events: each against the eager ``DataFrame`` chain of the same
+   operators in the same run (keys, counts, min and max bit for bit,
+   sums and means within ``1e-5 * sum|v|``) and, where phases 3 and 6 ran
+   it, their oracles; zero overflow; exchanges 8 / 8 / 3 / 0 / 1 / 0 on 4
+   shards (the combiner groupby one a chunk, none at the merge), 0 on 1;
+   the kernels launched; the first chunk's segment-kernel inputs held
+   against the plain versions (``chunk_kernels``);
+16. telemetry: phases 3-4's main path under ``telemetry.trace()``, its
+   ``table.join`` / ``table.groupby`` spans with their rows in and out,
+   the 1-shard join span no shorter than that call's probe kernel (CUDA
+   events: ``Span.block`` waits for the card), the exported Chrome trace
+   and metrics files parsed, medians of 3 with telemetry on and off
+   (interleaved); phase 14's 4-shard chain through ``collect(telemetry=,
+   ledger=)``: the audit consistent (planner 2 == counted 2), a q-error a
+   step, one ledger line read back, and ``explain(analyze=True)``
+   annotating every step;
+17. recovery and workflow.  Phase 14's 4-shard chain followed by a sort
+   on ``v_sum`` (a second exchange stage; the chain alone has one) runs
+   in a child process (``--crash-child``, the same ``--seed``) under
+   ``collect(policy=FaultPolicy(checkpoint_dir=..., keep_checkpoints=
+   True))`` with ``HPTMT_FAULTS=checkpoint.commit:crash:2``, which dies by
+   SIGKILL between the second stage's snapshot and its rename; this
+   process resumes: one stage restored, 1 exchange (the suffix), the
+   committed join stage equal to an uncrashed run's as a bitwise row
+   multiset, the rows' exact lanes bit for bit and their float sums
+   within ``1e-5`` (the card's float atomics add in varying order); a
+   rerun with every stage committed makes 0 exchanges and gives the same
+   rows bit for bit; no ``.tmp`` is left.  ``CheckpointManager(
+   async_save=True)`` saves and restores smollm-360m's bf16 parameters
+   (random from the seed, ~0.72 GB) onto the card, bit for bit; a
+   flipped byte raises ``CheckpointIntegrityError``; save and restore
+   GB/s are printed.  A 3-task ``WorkflowEngine`` (scan → join + groupby
+   → check against phase 3's oracle) retries one injected ``scan.read``
+   fault through its policy, and a second engine resumes from the
+   journal without running a task;
+18. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
 Wall times of phases 3-12 are medians of 3 runs after one checked warm-up
 run; kernel launch counts are those of the checked runs.  ``--profile``
 adds one ``torch.profiler`` run of each of phases 3-10, of phase 12's
-re-entry path and of phase 14's 4-shard planned chain (device busy share,
-top kernels; a table of each in the output directory that
-``profile_run`` writes to).
+re-entry path, of phase 14's 4-shard planned chain, of phase 15's 4-shard
+``groupby_k`` and ``join_groupby`` pipelines and of phase 16's traced
+4-shard main path (device busy share, top kernels; a table of each in
+the output directory that ``profile_run`` writes to).
 Float32 matrix products run in full float32 (TF32 off, PyTorch's
 default, set here).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -300,12 +343,10 @@ def check_join(jdf, left_dev, oracle, tag: str):
     return j
 
 
-def check_main_path(res, left_dev, oracle, tag: str):
-    """Exact row counts, keys, counts and min/max; sums within
-    ``1e-5 * sum|v|`` per group of the float64 oracle."""
-    j = check_join(res["j"], left_dev, oracle, tag)
-
-    g = res["g"].to_numpy()
+def check_groupby_g(g, oracle, tag):
+    """A ``G_AGGS`` groupby on ``g`` of the main path's join against the
+    float64 oracle (rows in any order): keys, counts, min and max exact,
+    sums and means within ``1e-5 * sum|v|``; returns the rows by key."""
     order = np.argsort(g["g"])
     g = {k: v[order] for k, v in g.items()}
     o = oracle["g"]
@@ -317,6 +358,14 @@ def check_main_path(res, left_dev, oracle, tag: str):
     check_close(g["w_sum"], o["w_sum"], o["w_abs"], f"{tag}: g w_sum")
     check_close(g["v_mean"], o["v_sum"] / o["v_count"],
                 o["v_abs"] / o["v_count"], f"{tag}: g v_mean")
+    return g
+
+
+def check_main_path(res, left_dev, oracle, tag: str):
+    """Exact row counts, keys, counts and min/max; sums within
+    ``1e-5 * sum|v|`` per group of the float64 oracle."""
+    j = check_join(res["j"], left_dev, oracle, tag)
+    g = check_groupby_g(res["g"].to_numpy(), oracle, tag)
 
     k = res["k"].to_numpy()
     order = np.argsort(k["k"], kind="stable")
@@ -1585,11 +1634,7 @@ def planned_chain(DataFrame, LazyFrame, pred, ctx, root, rdf, lazy: bool):
     """scan → filter(v > 0) → join(right, k) → groupby(k) →
     window(k, v_sum, rows=32), planned or eager."""
     if lazy:
-        out = (LazyFrame.read_parquet(root, ctx, bucket_factor=2.0)
-               .filter([pred("v", ">", 0.0)]).join(rdf.lazy(), ["k"])
-               .groupby(["k"], PLAN_G_AGGS)
-               .window(["k"], ["v_sum"]).agg(PLAN_W_AGGS, rows=ROLL)
-               .collect())
+        out = planned_chain_lazy(LazyFrame, pred, ctx, root, rdf).collect()
     else:
         out = (DataFrame.read_dataset(root, ctx, bucket_factor=2.0)
                .select(pred("v", ">", 0.0).mask).join(rdf, ["k"])
@@ -1613,10 +1658,7 @@ def plan_phase(DataFrame, ctx1, ctx4, left, right, launches, profile: bool):
             ns = ctx.n_shards
             tag = f"planned_{ns}shard" + ("s" if ns > 1 else "")
             rdf = DataFrame.from_dict(right, ctx, bucket_factor=bf)
-            lf = (LazyFrame.read_parquet(root, ctx, bucket_factor=2.0)
-                  .filter([pred("v", ">", 0.0)]).join(rdf.lazy(), ["k"])
-                  .groupby(["k"], PLAN_G_AGGS)
-                  .window(["k"], ["v_sum"]).agg(PLAN_W_AGGS, rows=ROLL))
+            lf = planned_chain_lazy(LazyFrame, pred, ctx, root, rdf)
             text = lf.explain()
             check(text == lf.explain(), f"{tag}: explain() is deterministic")
             predicted = lf.physical_plan().predicted_collectives
@@ -1680,6 +1722,530 @@ def plan_phase(DataFrame, ctx1, ctx4, left, right, launches, profile: bool):
     return out
 
 
+TSET_CHUNKS = 8
+TSET_AGGS = [("v", "sum"), ("v", "mean"), ("v", "min"), ("v", "max"),
+             ("v", "count")]
+#: phase 15's exchanges on 4 shards: the combiner groupby one a chunk
+#: and none at the merge, the join 2 + its groupby's one chunk 1, the
+#: window's range exchange 1, top-k and reduce none
+TSET_EXCHANGES = {"groupby_k": TSET_CHUNKS, "groupby_g": TSET_CHUNKS,
+                  "join_groupby": 3, "reduce": 0, "window": 1, "topk": 0}
+
+
+def positive_groupby_close(got, want, tag):
+    """Two groupbys of ``v > 0`` rows sorted by key: keys, counts, min and
+    max bit for bit, sums and means within ``1e-5`` of the other's (every
+    summand is positive, so ``|sum| = sum|v|``)."""
+    check(sorted(got) == sorted(want), f"{tag}: columns {sorted(got)}")
+    for k in got:
+        if k in ("v_sum", "v_mean"):
+            check_close(got[k], want[k].astype(np.float64),
+                        np.abs(want[k]).astype(np.float64), f"{tag}: {k}")
+        else:
+            check(np.array_equal(bits_np(got[k]), bits_np(want[k])),
+                  f"{tag}: {k} bit for bit")
+
+
+def tset_pipelines(TSet, ctx, lt, rt, et):
+    """Phase 15's four pipelines over chunked phase 3-7 frames (8 chunks a
+    table): name -> thunk returning ``(tset, result)``."""
+    def chunks(dt):
+        return TSet.from_table(dt, ctx, chunk_rows=dt.capacity // TSET_CHUNKS)
+
+    def positive():
+        return chunks(lt).select(lambda c: c["v"] > 0)
+
+    def run(ts, sink=None):
+        out = ts.collect() if sink is None else getattr(ts, sink[0])(*sink[1])
+        torch.cuda.synchronize()
+        return ts, out
+
+    return {
+        "groupby_k": lambda: run(positive().groupby(["k"], TSET_AGGS)),
+        "groupby_g": lambda: run(positive().groupby(["g"], TSET_AGGS)),
+        "join_groupby": lambda: run(chunks(lt).join(chunks(rt), ["k"])
+                                    .groupby(["g"], G_AGGS)),
+        "reduce": lambda: run(chunks(lt), ("reduce", ("v", "sum"))),
+        "window": lambda: run(chunks(et).window(["g"], ["t"],
+                                                [("v", "sum")], rows=ROLL)),
+        "topk": lambda: run(chunks(et).topk("v", TOPK)),
+    }
+
+
+def tset_phase(DataFrame, ctx1, ctx4, left, right, events, oracle,
+               ord_oracle, launches, profile: bool):
+    """Phase 15: the TSet dataflow over the main and ordered cells'
+    frames, on 1 and 4 virtual shards, against the eager chains of the
+    same operators in the same run and phases 3-7's oracles."""
+    from repro_torch.core.dataflow import TSet
+
+    out = {}
+    v_total = float(left["v"].astype(np.float64).sum())
+    v_abs = float(np.abs(left["v"]).astype(np.float64).sum())
+    for ctx, bf in ((ctx1, 1.0), (ctx4, 2.0)):
+        ns = ctx.n_shards
+        tag = f"tset_{ns}shard" + ("s" if ns > 1 else "")
+        ldf = DataFrame.from_dict(left, ctx, bucket_factor=bf)
+        rdf = DataFrame.from_dict(right, ctx, bucket_factor=bf)
+        edf = DataFrame.from_dict(events, ctx, bucket_factor=bf)
+        pipes = tset_pipelines(TSet, ctx, ldf.table, rdf.table, edf.table)
+        res, counts, secs, exchanges = {}, {}, {}, {}
+        for name, thunk in pipes.items():
+            torch.cuda.synchronize()
+            launches.reset()
+            # the first groupby keeps its first chunk's kernel inputs
+            with (PairTap() if name == "groupby_k"
+                  else contextlib.nullcontext()) as tap:
+                t0 = time.perf_counter()
+                ts, got = thunk()
+                secs[name] = time.perf_counter() - t0
+            counts[name], exchanges[name] = launches.read()
+            check(ts.overflow_report.is_exact(), f"{tag}: {name} exact")
+            want_ex = TSET_EXCHANGES[name] if ns > 1 else 0
+            check(exchanges[name] == want_ex, f"{tag}: {name} made "
+                  f"{exchanges[name]} exchanges, expected {want_ex}")
+            res[name] = got
+            if tap is not None:
+                chunk_kernels = tap.compare(f"{tag} chunk")
+            if profile and ns > 1 and name in ("groupby_k", "join_groupby"):
+                profile_run(f"{tag}_{name}", thunk)
+        # the same operators run eagerly, same frames, same run
+        pos = ldf.select(lambda c: c["v"] > 0)
+        t0 = time.perf_counter()
+        eager = {"groupby_k": pos.groupby(["k"], TSET_AGGS),
+                 "groupby_g": pos.groupby(["g"], TSET_AGGS),
+                 "join_groupby": ldf.join(rdf, ["k"]).groupby(
+                     ["g"], G_AGGS, out_capacity=G_OUT_CAP),
+                 "window": edf.window(["g"], ["t"]).agg([("v", "sum")],
+                                                        rows=ROLL),
+                 "topk": edf.topk("v", TOPK)}
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        for name in ("groupby_k", "groupby_g"):
+            key = name[-1]
+            positive_groupby_close(sort_rows_on_card(res[name], [key]),
+                                   sort_rows_on_card(eager[name].table,
+                                                     [key]),
+                                   f"{tag}: {name} vs eager")
+        jg = sort_rows_on_card(res["join_groupby"], ["g"])
+        ejg = sort_rows_on_card(eager["join_groupby"].table, ["g"])
+        check(all(np.array_equal(bits_np(jg[k]), bits_np(ejg[k]))
+                  for k in jg if not k.endswith(("_sum", "_mean"))),
+              f"{tag}: join_groupby exact lanes equal the eager chain's")
+        check_groupby_g(jg, oracle, f"{tag}: join_groupby (phase 3 oracle)")
+        red = float(res["reduce"])
+        check(abs(red - v_total) <= 1e-5 * v_abs,
+              f"{tag}: reduce sum {red} vs {v_total}")
+        w = res["window"].to_numpy()
+        ew = eager["window"].to_numpy()
+        srt = ord_oracle["sorted"]
+        for k in ("g", "t", "v"):
+            check(np.array_equal(w[k], srt[k]) and np.array_equal(ew[k], w[k]),
+                  f"{tag}: window {k} in phase 6's order")
+        want, scale = ord_oracle["close"]["v_sum"]
+        check_close(w["v_sum"], want, scale, f"{tag}: window v_sum (phase 6)")
+        check_close(w["v_sum"], ew["v_sum"].astype(np.float64), scale,
+                    f"{tag}: window v_sum vs eager")
+        top = res["topk"].to_numpy()["v"]
+        check(np.array_equal(top, ord_oracle["top"])
+              and np.array_equal(top, eager["topk"].to_numpy()["v"]),
+              f"{tag}: topk equals phase 6's and the eager chain's")
+        need = {"groupby_k": ["segment_reduce_fused", "segment_reduce"],
+                "join_groupby": ["probe", "segment_reduce_fused"],
+                "window": ["windowed_scan"]}
+        for name, kernels in need.items():
+            kernels = kernels + (["hash_partition"] if ns > 1 and
+                                 name != "window" else [])
+            check(all(counts[name][k] > 0 for k in kernels),
+                  f"{tag}: {name} launched {counts[name]}")
+        out[tag] = dict(seconds=secs, eager_s=eager_s, exchanges=exchanges,
+                        launches=counts, chunks=TSET_CHUNKS,
+                        groups_k=int(res["groupby_k"].counts.sum()),
+                        chunk_kernels=chunk_kernels)
+        del ldf, rdf, edf, pipes, res, eager, pos, w, ew
+        torch.cuda.empty_cache()
+    return out
+
+
+def planned_chain_lazy(LazyFrame, pred, ctx, root, rdf):
+    """Phase 14's chain as a LazyFrame (not collected)."""
+    return (LazyFrame.read_parquet(root, ctx, bucket_factor=2.0)
+            .filter([pred("v", ">", 0.0)]).join(rdf.lazy(), ["k"])
+            .groupby(["k"], PLAN_G_AGGS)
+            .window(["k"], ["v_sum"]).agg(PLAN_W_AGGS, rows=ROLL))
+
+
+class ProbeTimer:
+    """CUDA events around every probe launch made inside the ``with``."""
+
+    def __enter__(self):
+        from repro_torch.kernels.hash_join import kernel as hjk
+
+        self._mod, self._real, self.events = hjk, hjk.probe_cuda, []
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._real(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        hjk.probe_cuda = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.probe_cuda = self._real
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def telemetry_phase(DataFrame, ctx1, ctx4, left, right, oracle, root,
+                    launches, profile: bool):
+    """Phase 16: phases 3-4's main path under ``telemetry.trace()`` and
+    phase 14's 4-shard planned chain collected with telemetry and a
+    ledger."""
+    from repro_torch import telemetry
+    from repro_torch.io import pred
+    from repro_torch.plan import LazyFrame
+
+    out = {}
+    rows_k = int(oracle["k"]["k"].shape[0])
+    want = [("table.join", LEFT_ROWS, LEFT_ROWS),
+            ("table.groupby", LEFT_ROWS, GROUPS),
+            ("table.groupby", LEFT_ROWS, rows_k)]
+    with tempfile.TemporaryDirectory(prefix="hptmt_tele_") as tmp:
+        for ctx, bf in ((ctx1, 1.0), (ctx4, 2.0)):
+            ns = ctx.n_shards
+            tag = f"telemetry_{ns}shard" + ("s" if ns > 1 else "")
+            with telemetry.trace(tag) as rec, ProbeTimer() as probe:
+                main_path(DataFrame, ctx, left, right, bf)
+            probe_ms = probe.ms()
+            roots = [(s.name, s.attrs.get("rows_in"), s.attrs.get("rows_out"))
+                     for s in rec.spans if s.name.startswith("table.")]
+            check(roots == want, f"{tag}: operator spans {roots}")
+            join = next(s for s in rec.spans if s.name == "table.join")
+            join_ms = join.dur_us / 1e3
+            if ns == 1:
+                check(len(probe.events) == 1 and join_ms >= probe_ms,
+                      f"{tag}: the join span ({join_ms} ms) waits for its "
+                      f"probe kernel ({probe_ms} ms)")
+            paths = (os.path.join(tmp, f"{tag}.trace.json"),
+                     os.path.join(tmp, f"{tag}.metrics.json"))
+            telemetry.export_chrome_trace(rec, paths[0])
+            telemetry.export_metrics(rec, paths[1])
+            with open(paths[0]) as f:
+                events = json.load(f)["traceEvents"]
+            with open(paths[1]) as f:
+                snap = json.load(f)
+            check(sum(e["ph"] == "X" for e in events) == snap["n_spans"]
+                  >= len(want), f"{tag}: exported trace and metrics parse")
+            on, off = [], []
+            for _ in range(3):  # interleaved: off, on, off, on, ...
+                off += timed_runs(lambda: main_path(DataFrame, ctx, left,
+                                                    right, bf), runs=1)
+
+                def traced():
+                    with telemetry.trace("timed"):
+                        main_path(DataFrame, ctx, left, right, bf)
+                on += timed_runs(traced, runs=1)
+            if profile and ns > 1:
+                profile_run(tag, traced)
+            out[tag] = dict(
+                spans=roots, join_span_ms=join_ms, probe_kernel_ms=probe_ms,
+                n_spans=snap["n_spans"],
+                on_median_s=statistics.median(on),
+                off_median_s=statistics.median(off), on_runs_s=on,
+                off_runs_s=off, overhead=statistics.median(on)
+                / statistics.median(off) - 1.0)
+
+        # phase 14's 4-shard chain with telemetry, a ledger, and analyze
+        rdf = DataFrame.from_dict(right, ctx4, bucket_factor=2.0)
+        lf = planned_chain_lazy(LazyFrame, pred, ctx4, root, rdf)
+        plan = lf.physical_plan()
+        ledger = os.path.join(tmp, "runs.jsonl")
+        rec = telemetry.Collector("planned")
+        launches.reset()
+        t0 = time.perf_counter()
+        lf.collect(telemetry=rec, ledger=ledger)
+        collect_s = time.perf_counter() - t0
+        counts, ex = launches.read()
+        audit = rec.audits[-1]
+        check(audit["consistent"] and audit["predicted_a2a"]
+              == audit["observed_a2a"] == ex == 2,
+              f"planned chain audit {audit['predicted_a2a']} predicted, "
+              f"{audit['observed_a2a']} counted, counter {ex}")
+        qerr = {i: f.get("qerr") for i, f in rec.plan_steps.items()}
+        check(all(q is not None for q in qerr.values())
+              and "cardinality.max_qerror" in rec.metrics.gauges,
+              f"planned chain q-errors {qerr}")
+        lines = telemetry.ledger_read(ledger)
+        check(len(lines) == 1 and lines[0]["audit_consistent"] is True
+              and lines[0]["observed_a2a"] == 2, f"ledger {lines}")
+        text = lf.explain(analyze=True)
+        phys = text.split("== physical plan ==")[1].splitlines()
+        for s in plan.steps:
+            line = next(ln for ln in phys
+                        if ln.strip().startswith(f"{s.index}. "))
+            check("time=" in line and "rows=" in line,
+                  f"explain(analyze=True) annotates step {s.index}: {line}")
+        check("audit: predicted=2 counted=2" in text, "explain audit line")
+        out["telemetry_planned_4shards"] = dict(
+            collect_s=collect_s, exchanges=ex, launches=counts,
+            qerrors=qerr, max_qerror=rec.metrics.gauges[
+                "cardinality.max_qerror"],
+            exchange_bytes=audit["observed_bytes"],
+            steps={i: {k: f[k] for k in ("op", "time_us", "rows_out",
+                                         "est_rows", "qerr")}
+                   for i, f in sorted(rec.plan_steps.items())})
+    return out
+
+
+def resume_chain(LazyFrame, pred, ctx, root, rdf):
+    """Phase 17's chain: phase 14's, then a sort by ``v_sum`` — a second
+    exchange stage after the join's, so a kill at the second commit
+    leaves one stage committed."""
+    return planned_chain_lazy(LazyFrame, pred, ctx, root, rdf) \
+        .sort_values("v_sum")
+
+
+CRASH_FAULT = "checkpoint.commit:crash:2"
+
+
+def crash_child(seed: int, root: str, ckdir: str) -> int:
+    """The child of phase 17: the resume chain on 4 shards under stage
+    checkpoints, armed (``HPTMT_FAULTS``) to die by SIGKILL at the second
+    commit.  Returning at all is a failure."""
+    from repro_torch.core import HPTMTContext
+    from repro_torch.dataframe import DataFrame
+    from repro_torch.io import pred
+    from repro_torch.plan import LazyFrame
+    from repro_torch.resilience import FaultPolicy
+
+    check(os.environ.get("HPTMT_FAULTS") == CRASH_FAULT, "child is armed")
+    ctx4 = HPTMTContext(n_shards=4, device="cuda")
+    _, right, _ = make_data(seed)
+    rdf = DataFrame.from_dict(right, ctx4, bucket_factor=2.0)
+    resume_chain(LazyFrame, pred, ctx4, root, rdf).collect(
+        policy=FaultPolicy(checkpoint_dir=ckdir, keep_checkpoints=True))
+    print("chip_smoke: the crash child was not killed", file=sys.stderr)
+    return 1
+
+
+def recovery_phase(DataFrame, ctx4, left, right, oracle, root, seed, dev,
+                   launches):
+    """Phase 17: kill-and-resume of a planned chain, a model checkpoint of
+    smollm-360m's bf16 parameters, and a journaled workflow."""
+    import collections
+
+    from repro_torch import telemetry
+    from repro_torch.checkpoint import (CheckpointIntegrityError,
+                                        CheckpointManager)
+    from repro_torch.configs import get_config
+    from repro_torch.io import pred
+    from repro_torch.models.transformer import LM
+    from repro_torch.plan import LazyFrame, optimize
+    from repro_torch.resilience import (FaultPolicy, StageCheckpointer, arm,
+                                        fires, plan_fingerprint, reset)
+    from repro_torch.workflow import Task, WorkflowEngine
+
+    out = {}
+    rdf = DataFrame.from_dict(right, ctx4, bucket_factor=2.0)
+    with tempfile.TemporaryDirectory(prefix="hptmt_rec_") as tmp:
+        # --- crash and resume -------------------------------------------
+        ckdir = os.path.join(tmp, "stages")
+        lf = resume_chain(LazyFrame, pred, ctx4, root, rdf)
+        plan = lf.physical_plan()
+        stages = [s.index for s in plan.steps if s.stage]
+        check(len(stages) == 2, f"resume chain stages {stages}")
+        captured = {}
+
+        def capture(step, layout, thunk):
+            captured[step.index] = thunk()
+            return captured[step.index]
+
+        plan.stage_hook = capture  # the uncrashed run, its stages kept
+        t0 = time.perf_counter()
+        full, _ = plan.fn(*plan.inputs())
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        env = dict(os.environ, HPTMT_FAULTS=CRASH_FAULT)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--crash-child", root, ckdir], env=env, capture_output=True,
+            text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == -9, f"the child died by SIGKILL "
+              f"(rc {child.returncode}): {child.stderr[-2000:]}")
+        fp = plan_fingerprint(optimize(lf.logical_plan)[0], ctx4)
+        names = sorted(os.listdir(os.path.join(ckdir, fp)))
+        check(names == [f"stage_{stages[0]}", f"stage_{stages[1]}.tmp"],
+              f"after the kill: {names}")
+        pol = FaultPolicy(checkpoint_dir=ckdir, keep_checkpoints=True)
+        rec = telemetry.Collector("resume")
+        launches.reset()
+        t0 = time.perf_counter()
+        resumed = lf.collect(policy=pol, telemetry=rec)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        counts, ex = launches.read()
+        restored = rec.metrics.counters.get("recovery.stages_restored", 0)
+        check(restored >= 1, f"resume restored {restored} stages")
+        suffix = plan.predicted_collectives - sum(
+            s.a2a for s in plan.steps if s.index <= stages[0])
+        check(ex == suffix == 1, f"resume counted {ex} exchanges, the "
+              f"suffix predicts {suffix}")
+        t0 = time.perf_counter()
+        stage_dt, _ = StageCheckpointer(ckdir, fp).restore(stages[0], ctx4)
+        torch.cuda.synchronize()
+        stage_restore_s = time.perf_counter() - t0
+        join_rows = captured[stages[0]][0].valid_rows()
+        check(torch.equal(canonical(stage_dt.valid_rows(), sorted(join_rows)),
+                          canonical(join_rows, sorted(join_rows))),
+              "the committed join stage equals the uncrashed run's, bit "
+              "for bit")
+        got = sort_rows_on_card(resumed.table, ["k"])
+        want = sort_rows_on_card(full, ["k"])
+        check(sorted(got) == sorted(want), f"resumed columns {sorted(got)}")
+        # float sums come from the card's float atomics, whose order of
+        # adds varies from run to run: exact lanes bit for bit, sums close
+        sums_bitwise = True
+        for k in got:
+            same = np.array_equal(bits_np(got[k]), bits_np(want[k]))
+            if k in ("v_sum", "v_sum_sum"):
+                check_close(got[k], want[k].astype(np.float64),
+                            np.abs(want[k]).astype(np.float64),
+                            f"resumed {k}")
+                sums_bitwise &= same
+            else:
+                check(same, f"resumed {k} bit for bit")
+        launches.reset()
+        t0 = time.perf_counter()
+        again = lf.collect(policy=pol)
+        torch.cuda.synchronize()
+        rerun_s = time.perf_counter() - t0
+        _, ex2 = launches.read()
+        check(ex2 == 0, f"a fully committed rerun made {ex2} exchanges")
+        a, b = again.to_numpy(), resumed.to_numpy()
+        check(all(np.array_equal(bits_np(a[k]), bits_np(b[k])) for k in b),
+              "the fully committed rerun is bit-exact")
+        tmp_left = [n for _, dirs, files in os.walk(ckdir)
+                    for n in dirs + files if n.endswith(".tmp")]
+        check(tmp_left == [], f"no .tmp left: {tmp_left}")
+        out["recovery_resume_4shards"] = dict(
+            full_s=full_s, child_s=child_s, resume_s=resume_s,
+            rerun_s=rerun_s, stage_restore_s=stage_restore_s,
+            stage_bytes={i: dir_bytes(os.path.join(ckdir, fp, f"stage_{i}"))
+                         for i in stages},
+            stages=stages, restored=restored,
+            resume_exchanges=ex, rerun_exchanges=ex2, launches=counts,
+            rows=int(resumed.table.counts.sum()),
+            sums_bitwise_vs_uncrashed=sums_bitwise)
+        del full, resumed, again, captured, stage_dt, join_rows
+
+        # --- model checkpoint: smollm-360m's bf16 parameters ------------
+        cfg = get_config("smollm-360m")
+        model = LM(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        sd = model.state_dict()
+        nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+        check(all(t.dtype == torch.bfloat16 for t in sd.values()
+                  if t.is_floating_point()), "smollm parameters are bf16")
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(1, sd)
+        handed_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = mgr.restore(sd, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(all(back[k].device == v.device and back[k].dtype == v.dtype
+                  and torch.equal(bit_view(back[k]), bit_view(v))
+                  for k, v in sd.items()), "bf16 restore is bit-exact")
+        step_dir = os.path.join(tmp, "ckpt", "step_1")
+        leaf = os.path.join(step_dir, next(
+            n for n in sorted(os.listdir(step_dir)) if n.endswith(".npy")))
+        with open(leaf, "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            mgr.restore(sd, device="cuda")
+            flipped = "restored"
+        except CheckpointIntegrityError as e:
+            flipped = str(e)
+        check("CRC mismatch" in flipped, f"a flipped byte: {flipped}")
+        out["recovery_checkpoint"] = dict(
+            arch="smollm-360m", leaves=len(sd), bytes=nbytes,
+            save_handed_s=handed_s, save_s=save_s, restore_s=restore_s,
+            save_gb_s=nbytes / save_s / 1e9,
+            restore_gb_s=nbytes / restore_s / 1e9)
+        del model, sd, back
+        torch.cuda.empty_cache()
+
+        # --- a journaled workflow with one transient fault --------------
+        calls = collections.Counter()
+
+        def scan():
+            calls["scan"] += 1
+            return DataFrame.read_dataset(root, ctx4, bucket_factor=2.0)
+
+        def join_groupby(scan):
+            calls["join_groupby"] += 1
+            return scan.join(rdf, ["k"]).groupby(["g"], G_AGGS,
+                                                 out_capacity=G_OUT_CAP)
+
+        def verify(join_groupby):
+            calls["check"] += 1
+            check_groupby_g(join_groupby.to_numpy(), oracle, "workflow")
+            return True
+
+        def engine(journal):
+            pol = FaultPolicy(max_retries=2, backoff_base=0.01)
+            return (WorkflowEngine(journal, policy=pol)
+                    .add(Task("scan", scan))
+                    .add(Task("join_groupby", join_groupby, deps=("scan",)))
+                    .add(Task("check", verify, deps=("join_groupby",))))
+
+        journal = os.path.join(tmp, "journal.json")
+        reset()
+        arm("scan.read", "io_error")  # the first fragment read fails once
+        with telemetry.trace("workflow") as rec:
+            t0 = time.perf_counter()
+            results = engine(journal).run()
+            torch.cuda.synchronize()
+            wf_s = time.perf_counter() - t0
+        check(results["check"] is True and fires("scan.read") == 1,
+              "workflow ran through one injected fault")
+        check(dict(calls) == {"scan": 2, "join_groupby": 1, "check": 1}
+              and rec.metrics.counters.get("retry.workflow.scan") == 1,
+              f"workflow retried the scan once through the policy: {calls}")
+        with telemetry.trace("workflow-resume") as rec2:
+            engine(journal).run()
+        check(dict(calls) == {"scan": 2, "join_groupby": 1, "check": 1}
+              and rec2.metrics.counters.get("workflow.replayed") == 3,
+              f"a second engine resumed from the journal: {calls}")
+        reset()
+        out["recovery_workflow"] = dict(
+            seconds=wf_s, calls=dict(calls),
+            spans=[(s.name, s.attrs.get("attempts"))
+                   for s in rec.all_spans() if s.name.startswith("workflow")])
+    return out
+
+
+def bit_view(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as an integer tensor of its width."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
 def bits_np(a: np.ndarray) -> np.ndarray:
     return a.view(np.uint32) if a.dtype == np.float32 else a
 
@@ -1715,12 +2281,18 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one run of each of phases 3-10 and "
                     "of the re-entry path")
+    ap.add_argument("--crash-child", nargs=2, metavar=("DATASET", "STAGES"),
+                    help="run as phase 17's child: the resume chain over "
+                    "DATASET with stage checkpoints in STAGES, killed by its "
+                    "armed fault")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.crash_child:
+        return crash_child(args.seed, *args.crash_child)
     from repro_torch.core import HPTMTContext
     from repro_torch.dataframe import DataFrame
     from repro_torch.kernels import native
@@ -1900,14 +2472,41 @@ def main() -> int:
                                    events, j1, left_dev, oracle, ord_oracle,
                                    launches).items():
         emit(tag, **fields)
-    del j1, ord_oracle
+    del j1
 
     # 14. the lazy planner's chain against the eager chain, 4 then 1 shard
     for tag, fields in plan_phase(DataFrame, ctx1, ctx4, left, right,
                                   launches, args.profile).items():
         emit(tag, **fields)
 
-    # 15. summary
+    # 15. the TSet dataflow over the main and ordered cells, 1 and 4 shards
+    t0 = time.perf_counter()
+    for tag, fields in tset_phase(DataFrame, ctx1, ctx4, left, right, events,
+                                  oracle, ord_oracle, launches,
+                                  args.profile).items():
+        emit(tag, **fields)
+    del ord_oracle, events
+    new_s = {"tset": time.perf_counter() - t0}
+
+    # 16./17. telemetry, then recovery and workflow, over one dataset
+    with tempfile.TemporaryDirectory(prefix="hptmt_services_") as tmp:
+        root = os.path.join(tmp, "left")
+        DataFrame.from_dict(left, ctx4).to_hpt(root)
+        t0 = time.perf_counter()
+        for tag, fields in telemetry_phase(DataFrame, ctx1, ctx4, left,
+                                           right, oracle, root, launches,
+                                           args.profile).items():
+            emit(tag, **fields)
+        new_s["telemetry"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for tag, fields in recovery_phase(DataFrame, ctx4, left, right,
+                                          oracle, root, args.seed, dev,
+                                          launches).items():
+            emit(tag, **fields)
+        new_s["recovery"] = time.perf_counter() - t0
+    emit("services_seconds", **new_s)
+
+    # 18. summary
     kernels = []
     for r in krows:
         name = r["name"]

@@ -33,10 +33,15 @@ import torch
 
 
 class Counter:
-    """A plain call counter (reset to 0 before a run, read after)."""
+    """A plain call counter (reset to 0 before a run, read after).
+
+    ``log``, when a list, also receives each counted exchange's payload
+    bytes (``telemetry.audit.exchange_log`` sets it; ``None`` — the
+    default — keeps the count the only cost)."""
 
     def __init__(self):
         self.n = 0
+        self.log = None
 
     def add(self) -> None:
         self.n += 1
@@ -56,6 +61,9 @@ def all_to_all(frames: Sequence[torch.Tensor]) -> list:
     bound for shard ``d``; returns the ``(P, ...)`` frame each shard
     receives, block ``s`` from sender ``s``."""
     EXCHANGES.add()
+    if EXCHANGES.log is not None:
+        EXCHANGES.log.append(sum(f.numel() * f.element_size()
+                                 for f in frames))
     return list(torch.stack(list(frames)).transpose(0, 1).unbind(0))
 
 

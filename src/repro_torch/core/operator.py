@@ -9,15 +9,19 @@ HPTMT classifies operators along three axes:
   * **execution** — SPMD (same program on every shard, loosely synchronous)
     or MPMD (producer/consumer stages).
 
-The registry makes the operator inventory introspectable.  This port's
-decorator registers only; operator calls are not yet reported to a
-telemetry collector.
+The registry makes the operator inventory introspectable.  Under an
+active telemetry collector every registered operator call becomes a
+``<name>`` span with its rows in and out (``telemetry.record.
+operator_call``); with none active the hook is one global ``None`` check.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 from typing import Callable, Dict, List
+
+from ..telemetry import record as _telemetry
 
 
 class Abstraction(enum.Enum):
@@ -68,8 +72,18 @@ def operator(name: str, abstraction: Abstraction, *,
         if name in _REGISTRY:
             raise ValueError(f"operator {name!r} registered twice")
         _REGISTRY[name] = info
-        fn.op_info = info  # type: ignore[attr-defined]
-        return fn
+
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            # telemetry hook: ONE global check when off (the overhead
+            # contract); under an active collector every registered
+            # operator call becomes a span with rows in/out recorded
+            if _telemetry._ACTIVE is None:
+                return fn(*args, **kwargs)
+            return _telemetry.operator_call(name, fn, args, kwargs)
+
+        inner.op_info = info  # type: ignore[attr-defined]
+        return inner
 
     return wrap
 

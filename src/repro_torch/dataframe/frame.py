@@ -30,8 +30,15 @@ from ..core.table import DistTable, Table, as_tensor, partitioning_kind
 
 
 def _publish_report(report: OverflowReport) -> OverflowReport:
-    """Hand a lineage report on to telemetry — a no-op until the port has
-    a telemetry collector."""
+    """Mirror a lineage report into the active telemetry collector (a
+    no-op when telemetry is off).  Gauge semantics make re-publishing a
+    cumulative lineage idempotent — overflow shows up in the metrics
+    dump under the same dotted labels the report itself uses."""
+    from .. import telemetry
+
+    rec = telemetry.current()
+    if rec is not None:
+        rec.record_overflow(report)
     return report
 
 

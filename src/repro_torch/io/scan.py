@@ -42,9 +42,10 @@ assembly, narrowed as ``core/table.py:as_tensor`` narrows (int64 → int32,
 uint64 → uint32, float64 → float32) and refused, unless
 ``allow_narrowing``, when the narrowing would lose a value.
 
-The reference also opens ``io.scan.*`` telemetry spans, records the scan
-and publishes memory pressure on an active collector; the port has no
-telemetry yet (ROADMAP Queue 1 item 9), so those calls are left out.
+Under an active telemetry collector the scan opens the reference's
+``io.scan.prune`` / ``io.scan.read`` / ``io.scan.materialize`` spans,
+records its :class:`ScanStats` under ``scan.*`` and publishes the host's
+memory pressure (``scan.pressure.*``).
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core.table import DistTable, Partitioning, Table, as_tensor
 from ..resilience import faults
 from .dataset import Dataset, Fragment, open_dataset
@@ -206,12 +208,15 @@ class ScanSource:
                     if not (pr.op == "!="
                             and self.dataset.schema[pr.column].np_dtype.kind
                             == "f")]
-        kept: List[Fragment] = [
-            frag for frag in self.dataset.fragments
-            if all(pr.maybe_satisfied(frag.stats.get(pr.column))
-                   for pr in prunable)]
-        self.stats.row_groups_skipped = (
-            len(self.dataset.fragments) - len(kept))
+        with telemetry.span("io.scan.prune",
+                            fragments=len(self.dataset.fragments)) as sp:
+            kept: List[Fragment] = [
+                frag for frag in self.dataset.fragments
+                if all(pr.maybe_satisfied(frag.stats.get(pr.column))
+                       for pr in prunable)]
+            self.stats.row_groups_skipped = (
+                len(self.dataset.fragments) - len(kept))
+            sp.attrs["pruned"] = self.stats.row_groups_skipped
         self.stats.columns_read = len(self.read_columns) if kept else 0
 
         # partitioned re-entry: manifest evidence + matching context +
@@ -335,33 +340,38 @@ class ScanSource:
         :class:`CorruptFragmentError` naming file + fragments, or the
         run is quarantined when the scan opted in.
         """
-        try:
-            cols, n = self._read_fragments(frags)
-        except (ValueError, KeyError) as e:
-            # the corruption family: CorruptFragmentError subclasses
-            # (hpt integrity / byte counts / schema drift), pyarrow's
-            # ArrowInvalid (a ValueError), missing-column KeyErrors
-            err = e if isinstance(e, CorruptFragmentError) else \
-                CorruptFragmentError(
-                    f"{frags[0].path}: fragment(s) "
-                    f"{[f.row_group for f in frags]} failed to decode "
-                    f"({type(e).__name__}: {e})")
-            if self.on_error != "quarantine":
-                raise err from e
-            self._quarantine(frags, err)
-            schema = self.dataset.schema
-            cols = {c: np.zeros((0,) + schema[c].trailing,
-                                schema[c].np_dtype)
-                    for c in self.read_columns}
-            n = 0
-        self.stats.rows_scanned += n
-        if self.predicate:
-            keep = np.ones(n, bool)
-            for pr in self.predicate:
-                keep &= pr.mask(cols)
-            cols = {k: v[keep] for k, v in cols.items()}
-            n = int(keep.sum())
-        self.stats.rows_selected += n
+        with telemetry.span("io.scan.read", path=frags[0].path,
+                            fragments=len(frags)) as sp:
+            try:
+                cols, n = self._read_fragments(frags)
+            except (ValueError, KeyError) as e:
+                # the corruption family: CorruptFragmentError subclasses
+                # (hpt integrity / byte counts / schema drift), pyarrow's
+                # ArrowInvalid (a ValueError), missing-column KeyErrors
+                err = e if isinstance(e, CorruptFragmentError) else \
+                    CorruptFragmentError(
+                        f"{frags[0].path}: fragment(s) "
+                        f"{[f.row_group for f in frags]} failed to decode "
+                        f"({type(e).__name__}: {e})")
+                if self.on_error != "quarantine":
+                    raise err from e
+                self._quarantine(frags, err)
+                sp.attrs["quarantined"] = len(frags)
+                schema = self.dataset.schema
+                cols = {c: np.zeros((0,) + schema[c].trailing,
+                                    schema[c].np_dtype)
+                        for c in self.read_columns}
+                n = 0
+            self.stats.rows_scanned += n
+            sp.attrs["rows_scanned"] = n
+            if self.predicate:
+                keep = np.ones(n, bool)
+                for pr in self.predicate:
+                    keep &= pr.mask(cols)
+                cols = {k: v[keep] for k, v in cols.items()}
+                n = int(keep.sum())
+            self.stats.rows_selected += n
+            sp.attrs["rows_selected"] = n
         return {k: cols[k] for k in self.out_columns}, n
 
     def _load_fragments(self, frags: Sequence[Fragment]
@@ -410,14 +420,23 @@ class ScanSource:
         self._reset_io_stats()
         overflow = 0
         tables = []
-        for frags in self._by_shard:
-            t, ov = self._shard_table(frags, self.shard_capacity)
-            tables.append(t)
-            overflow += ov
-        dt = DistTable.from_shard_tables(tables, self.ctx,
-                                         partitioning=self._partitioning)
+        with telemetry.span("io.scan.materialize",
+                            shards=self.ctx.n_shards) as sp:
+            for frags in self._by_shard:
+                t, ov = self._shard_table(frags, self.shard_capacity)
+                tables.append(t)
+                overflow += ov
+            dt = DistTable.from_shard_tables(tables, self.ctx,
+                                             partitioning=self._partitioning)
+            sp.block(dt)
+            sp.attrs["rows"] = self.stats.rows_selected
+            sp.attrs["overflow"] = overflow
         if self.quarantined:
             self._write_quarantine_manifest()
+        rec = telemetry.current()
+        if rec is not None:
+            rec.record_scan(self.stats)
+            telemetry.publish_pressure(rec, "scan")
         return dt, overflow
 
     def chunks(self):
@@ -452,11 +471,10 @@ class ScanSource:
                 tables, self.ctx, partitioning=self._partitioning)
 
     def to_tset(self):
-        """The TSet bridge for out-of-core dataflow pipelines — not in the
-        port yet."""
-        raise NotImplementedError(
-            "ScanSource.to_tset: the TSet dataflow is not ported yet "
-            "(ROADMAP Queue 1 item 9); iterate chunks() instead")
+        """The TSet bridge for out-of-core dataflow pipelines."""
+        from ..core.dataflow import TSet
+
+        return TSet.from_scan(self)
 
 
 def read_dataset(path: str, *, ctx, columns: Optional[Sequence[str]] = None,

@@ -8,9 +8,14 @@ min and max.
 The plain version sorts rows by segment id (stable) and reads each
 segment as a contiguous run:
 
-  * sums are differences of a float64 prefix sum over the finite values —
-    exact to far below float32 rounding — with NaN and ±inf entries counted
-    separately so they poison only their own segment;
+  * sums add each run's finite values on their own, in float64 (runs of
+    one length class gathered into one padded block and summed along it),
+    with NaN and ±inf entries counted separately so they poison only their
+    own segment.  A run's sum depends on its own rows alone: a difference
+    of two prefix sums over the whole sorted table would carry that
+    prefix's float64 rounding (eps * |prefix|) into every segment, which
+    exceeds float32 rounding for a small segment after a long prefix of
+    same-signed values;
   * min/max sort by value within the segment (NaN last, ``-0.0`` before
     ``+0.0``, by :func:`order_key`): the run's first element is the min and
     its last the max, and a NaN last element means the segment holds a
@@ -54,6 +59,30 @@ def _runs(seg: torch.Tensor, num_segments: int, values: torch.Tensor
             torch.searchsorted(s, ids, right=True))
 
 
+def _run_sums(x: torch.Tensor, start: torch.Tensor,
+              end: torch.Tensor) -> torch.Tensor:
+    """``x[start[i]:end[i]].sum(0)`` for every run ``i`` of ``(n, L)``
+    rows, each run summed on its own: runs whose lengths share a power of
+    two are gathered into one zero-padded ``(runs, width, L)`` block (at
+    most twice their rows) and summed along the width."""
+    length = end - start
+    out = x.new_zeros((start.shape[0], x.shape[1]))
+    live = length > 0
+    if not bool(live.any()):
+        return out
+    cls = torch.where(live, torch.floor(torch.log2(
+        length.clamp(min=1).to(torch.float64))).to(torch.int64), -1)
+    for c in torch.unique(cls[live]).tolist():
+        sel = torch.nonzero(cls == c).flatten()
+        width = int(length[sel].max())
+        offs = torch.arange(width, device=x.device)
+        idx = (start[sel, None] + offs).clamp(max=x.shape[0] - 1)
+        block = x[idx]
+        block = torch.where((offs < length[sel, None])[..., None], block, 0.0)
+        out[sel] = block.sum(dim=1)
+    return out
+
+
 def segment_reduce_fused(values: torch.Tensor, segment_ids: torch.Tensor,
                          num_segments: int) -> torch.Tensor:
     """Sum-reduce ``(N, L)`` float32 values by segment → ``(S, L)``."""
@@ -61,11 +90,7 @@ def segment_reduce_fused(values: torch.Tensor, segment_ids: torch.Tensor,
                              values.to(torch.float64))
 
     def run_sums(x):
-        # prefix sums along the innermost dimension: a CUDA scan along the
-        # outer dimension of a narrow (n, L) tensor is nearly serial
-        cs = torch.cumsum(x.t().contiguous(), dim=1)
-        cs = torch.cat([cs.new_zeros((cs.shape[0], 1)), cs], dim=1)
-        return (cs[:, end] - cs[:, start]).t()
+        return _run_sums(x, start, end)
 
     finite = torch.isfinite(v)
     total = run_sums(torch.where(finite, v, 0.0))

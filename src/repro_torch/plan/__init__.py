@@ -15,10 +15,10 @@ pipelines never make more exchanges than their eager equivalents.
 """
 from . import logical
 from .explain import render_explain
-from .frame import LazyFrame, LazyWindow
+from .frame import LazyFrame, LazyWindow, PlanAuditError
 from .physical import Layout, PhysicalPlan, PlanStep
 from .rules import RULES, estimated_rows, optimize
 
 __all__ = ["LazyFrame", "LazyWindow", "Layout", "PhysicalPlan",
-           "PlanStep", "RULES", "estimated_rows", "logical", "optimize",
-           "render_explain"]
+           "PlanAuditError", "PlanStep", "RULES", "estimated_rows",
+           "logical", "optimize", "render_explain"]

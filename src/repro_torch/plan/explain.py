@@ -12,9 +12,8 @@ all-to-all bytes "in compiled HLO", and the port compiles no HLO.  What
 the port can know is the count of calls of its exchange choke point
 (``core.array_ops.EXCHANGES``), so the port's footer reads
 ``audit: predicted=<n> counted=<n> all_to_all at the exchange choke
-point``.  Only ``explain(analyze=True)`` renders the footer, and it waits
-for the port's telemetry (ROADMAP Queue 1 item 9); ``plan_annotations``
-is ported for it.
+point``; each exchanging step's line carries its payload bytes.  Only
+``explain(analyze=True)`` renders the footer.
 """
 from __future__ import annotations
 

@@ -53,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import telemetry
 from ..core import table_ops
 from ..core.table import (DistTable, partitioning_ascending,
                           partitioning_keys, partitioning_kind,
@@ -62,31 +63,6 @@ from .logical import LogicalNode
 
 _FLIP = {"inner": "inner", "left": "right", "right": "left",
          "outer": "outer"}
-
-#: the live-bytes model's packed layout (reference ``telemetry/memory.py``):
-#: 4-byte uint32 lanes, one per column plus the two carried hash lanes
-_LANE_BYTES = 4
-_HASH_LANES = 2
-
-
-def _row_bytes(n_cols: int) -> int:
-    """Bytes one resident row costs in the packed-lane layout."""
-    return _LANE_BYTES * (int(n_cols) + _HASH_LANES)
-
-
-def _step_live_bytes(op: str, *, rows_in: float, rows_out: float,
-                     cols_in: int, cols_out: int, exchanges: int,
-                     n_shards: int) -> int:
-    """Deterministic live-bytes estimate for one physical plan step:
-    input + output residency, per-exchange packed send/recv staging, and
-    per-shard halo + carry rows for the ordered operators (the reference
-    telemetry's ``step_live_bytes``)."""
-    base = rows_in * _row_bytes(cols_in) + rows_out * _row_bytes(cols_out)
-    staged = 2.0 * exchanges * rows_in * _row_bytes(cols_in)
-    halo = 0.0
-    if op in ("window", "orderby", "topk"):
-        halo = 2.0 * max(1, n_shards) * _row_bytes(cols_in)
-    return int(base + staged + halo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,14 +129,14 @@ class PlanStep:
 
     ``stage`` marks an exchange boundary — a step whose strategy moves
     rows between shards (pre-clamp, so single-shard runs keep the same
-    stage structure).  Stage steps are where the reference's
-    ``collect(policy=...)`` commits lineage checkpoints (reference
-    DESIGN.md §13.2; the port's wait for ROADMAP Queue 1 item 9).
+    stage structure).  Stage steps are where ``collect(policy=...)``
+    commits lineage checkpoints (reference DESIGN.md §13.2).
 
     ``est_rows`` / ``est_bytes`` are the planner's deterministic
     predictions (manifest cardinality estimate + the packed-lane
-    live-bytes model, reference DESIGN.md §14) that the reference's
-    op-by-op instrumentation audits against observed rows and memory.
+    live-bytes model, reference DESIGN.md §14) that the op-by-op
+    instrumentation audits against observed ``rows_out`` /
+    ``peak_rss_delta_kb``.
     """
     index: int
     op: str
@@ -189,10 +165,10 @@ class PhysicalPlan:
         self._input_specs: List[Tuple[str, object]] = []
         self._materialized: Optional[Tuple[DistTable, ...]] = None
         self.scan_overflow = 0
-        # resilience hook of the reference's collect(policy=...): stage-
-        # boundary steps route through it — restore a committed snapshot
-        # or run + commit.  Stages are not ported (ROADMAP Queue 1 item
-        # 9), so it stays None and the program is the hookless one.
+        # resilience hook: when set (collect(policy=...)), stage-boundary
+        # steps route through it — restore a committed snapshot (skipping
+        # the whole subtree) or run + commit.  None (the default) keeps
+        # the executed program the hookless one.
         self.stage_hook = None
         self._est_cache: Dict[int, float] = {}
         run, layout = self._lower(root)
@@ -246,13 +222,15 @@ class PhysicalPlan:
         """Stamp the step with its predicted cardinality and live bytes
         (manifests + schema widths only — deterministic, no data read).
         Safe to replace in-place: run closures capture only the index."""
+        from ..telemetry import memory as M
+
         from .rules import estimated_rows
 
         est = estimated_rows(node, self._est_cache)
         rows_in = sum(estimated_rows(i, self._est_cache)
                       for i in node.inputs)
         cols_in = max((len(i.schema) for i in node.inputs), default=0)
-        est_bytes = _step_live_bytes(
+        est_bytes = M.step_live_bytes(
             step.op, rows_in=rows_in, rows_out=est, cols_in=cols_in,
             cols_out=len(node.schema), exchanges=step.a2a,
             n_shards=self.ctx.n_shards)
@@ -283,11 +261,39 @@ class PhysicalPlan:
 
     def _instrument(self, run: Callable, step: PlanStep,
                     layout: Layout) -> Callable:
-        """Per-node telemetry wrapper: the identity until the port has
-        telemetry (ROADMAP Queue 1 item 9).  The reference wraps each
-        node in a ``plan.<index>.<op>`` span when a collector is active
-        and the plan runs op-by-op."""
-        return run
+        """Per-node telemetry wrapper.
+
+        Inert unless a collector is active (and never while
+        ``torch.compile`` traces).  When live, each node becomes a
+        ``plan.<index>.<op>`` span (children nested inside), closed after
+        the card finished its outputs, and its measured time, rows and
+        host-RSS growth land in ``Collector.plan_steps`` for
+        ``explain(analyze=True)`` to join against the predicted steps.
+        """
+        label = f"plan.{step.index}.{step.op}"
+
+        def wrapped(tables):
+            from ..telemetry import memory as M
+
+            rec = telemetry.current()
+            if rec is None or telemetry.tracing():
+                return run(tables)
+            with M.RssWatermark() as wm:
+                with rec.span(label, op=step.op, strategy=step.strategy,
+                              a2a=step.a2a, layout=layout.describe(),
+                              est_rows=step.est_rows,
+                              est_bytes=step.est_bytes) as sp:
+                    out, ovs = run(tables)
+                    sp.block(out)
+                    rows = telemetry.record._rows_of(out)
+                    if rows is not None:
+                        sp.attrs["rows_out"] = rows
+            sp.attrs["peak_rss_delta_kb"] = wm.delta_kb
+            rec.observe_step(step.index, time_us=sp.dur_us, rows_out=rows,
+                             peak_rss_delta_kb=wm.delta_kb)
+            return out, ovs
+
+        return wrapped
 
     def _lower_source(self, node: LogicalNode):
         dt: DistTable = node.payload["table"]

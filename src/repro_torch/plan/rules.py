@@ -134,9 +134,8 @@ def estimated_rows(node: LogicalNode, cache: Optional[dict] = None) -> float:
 
     Orders join inputs (rule ``reorder-join-inputs``) and is stamped on
     every :class:`~repro_torch.plan.physical.PlanStep` as ``est_rows`` for the
-    cardinality audit (reference DESIGN.md §14.1; the port's audit waits
-    for telemetry, ROADMAP Queue 1 item 9) — deterministic, manifests only,
-    no data is ever read.  ``cache`` (id-keyed) amortizes the recursion
+    cardinality audit (reference DESIGN.md §14.1) — deterministic,
+    manifests only, no data is ever read.  ``cache`` (id-keyed) amortizes the recursion
     when the physical planner estimates every node of one tree."""
     if cache is not None and id(node) in cache:
         return cache[id(node)]

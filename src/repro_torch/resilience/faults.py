@@ -6,23 +6,20 @@ dotted name for an injection point the runtime passes through::
     scan.read            per fragment-run read in ``io.scan``
     spill.write          per run-file write in ``spill.store``
     plan.step.<idx>      entry of physical plan step ``<idx>``
-
-The reference's fourth site, ``checkpoint.commit``, arrives with the
-checkpoint slice (ROADMAP Queue 1 item 9), and with it the ``crash`` kind
-that only its kill-and-resume tests use.  Sites are plain strings, so
-arming one that nothing fires yet is harmless.
+    checkpoint.commit    just before a stage checkpoint's atomic rename
 
 Every site calls :func:`fire` with its name; when nothing is armed the
 call is a cheap no-op (two env lookups, no allocation), so production
 paths carry no chaos overhead.  An armed fault counts down ``nth``
-occurrences at its site, raises on the ``nth``, then **disarms** — so a
+occurrences at its site, raises (or kills the process) on the ``nth``,
+then **disarms** — so a
 retry under the same environment succeeds, which is exactly the contract
 the retry/backoff layer is tested against.
 
 Arming is programmatic (:func:`arm`, :func:`arm_schedule` for seeded
 deterministic schedules) or via environment::
 
-    HPTMT_FAULTS="scan.read:io_error:2;spill.write:disk_full:1"
+    HPTMT_FAULTS="scan.read:io_error:2;checkpoint.commit:crash:1"
 
 The legacy ``HPTMT_SPILL_FAULT="<point>:<n>"`` knob is kept as a
 back-compat alias for site ``spill.write`` (``point`` one of
@@ -35,23 +32,23 @@ Fault kinds:
   partial_write  tear a half-written ``<path>.tmp`` then raise ``EIO``
   fatal          raise :class:`FatalInjectedFault` (a ``ValueError``) —
                  the typed-fatal family, must fail fast, never retry
+  crash          ``SIGKILL`` the current process (kill-and-resume tests)
 
-Fires are counted per site (:func:`fires`).  The reference also publishes
-each fire to an active telemetry collector as a ``fault.injected.<site>``
-counter; the port has no telemetry yet (ROADMAP Queue 1 item 9), so that
-call is left out until it does.
+Fires are counted per site (:func:`fires`) and published to an active
+telemetry collector as ``fault.injected.<site>`` counters.
 """
 from __future__ import annotations
 
 import dataclasses
 import errno
 import os
+import signal
 from typing import Dict, List, Optional, Sequence, Tuple
 
 FAULTS_ENV = "HPTMT_FAULTS"
 SPILL_FAULT_ENV = "HPTMT_SPILL_FAULT"
 SPILL_FAULT_POINTS = ("disk_full", "partial_write")
-KINDS = ("io_error", "disk_full", "partial_write", "fatal")
+KINDS = ("io_error", "disk_full", "partial_write", "fatal", "crash")
 
 
 class InjectedFault(OSError):
@@ -180,7 +177,14 @@ def fires(site: Optional[str] = None) -> int:
 
 def _trigger(a: _Arm, path: Optional[str]) -> None:
     _counts[a.site] = _counts.get(a.site, 0) + 1
+    from .. import telemetry
+
+    rec = telemetry.current()
+    if rec is not None:
+        rec.metrics.count(f"fault.injected.{a.site}")
     where = path or a.site
+    if a.kind == "crash":
+        os.kill(os.getpid(), signal.SIGKILL)
     if a.kind == "fatal":
         raise FatalInjectedFault(
             f"injected fatal fault at {a.site} ({where})")

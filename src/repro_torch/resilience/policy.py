@@ -3,13 +3,15 @@
 :class:`FaultPolicy` carries the whole fault-handling contract of a run
 (reference DESIGN.md §13.4): how many times to retry, how long to back off
 (exponential with *deterministic* jitter — reproducible schedules, no
-wall-clock randomness), and which exception types are retryable vs fatal.  In the port its
-consumers are ``io.scan.ScanSource`` (per-fragment-run read retries) and
-``spill.store.SpillStore`` (per-run write retries); the reference's
-others — ``collect(policy=...)``, stage checkpoints and the workflow
-engine — arrive with the runtime services (ROADMAP Queue 1 item 9), and
-the reference's ``checkpoint_dir`` and ``keep_checkpoints`` fields with
-them.
+wall-clock randomness), which exception types are retryable vs fatal,
+and where stage checkpoints go.  It is consumed by
+
+  * ``LazyFrame.collect(policy=...)`` — stage checkpoints + whole-plan
+    retry (``plan.collect`` site),
+  * ``io.scan.ScanSource`` — per-fragment-run read retries,
+  * ``spill.store.SpillStore`` — run-write retries,
+  * stage-checkpoint commits (``checkpoint.commit`` site),
+  * ``workflow.WorkflowEngine`` — task retries with backoff.
 
 Retry taxonomy: the **fatal** tuple (``ValueError``/``TypeError``/...)
 fails fast — those are programming or corruption errors where a retry
@@ -47,12 +49,18 @@ class FaultPolicy:
     attempts.  Backoff before retry ``k`` (0-based) is
     ``min(backoff_base * backoff_factor**k, backoff_max)`` scaled by a
     deterministic per-``(site, attempt)`` jitter in ``[1, 1+jitter]``.
+
+    ``checkpoint_dir`` enables lineage stage checkpoints under
+    ``collect(policy=...)``; ``keep_checkpoints=False`` removes them
+    after a successful collect (a crash leaves them for resume).
     """
     max_retries: int = 3
     backoff_base: float = 0.01
     backoff_factor: float = 2.0
     backoff_max: float = 1.0
     jitter: float = 0.1
+    checkpoint_dir: Optional[str] = None
+    keep_checkpoints: bool = False
     retryable: Optional[Tuple[type, ...]] = None
     fatal: Tuple[type, ...] = _DEFAULT_FATAL
 
@@ -77,12 +85,12 @@ class FaultPolicy:
             sleep: Callable[[float], None] = time.sleep):
         """Invoke ``fn()`` under this policy's retry loop.
 
-        Raises the original exception for fatal failures and
-        :class:`RetryBudgetExceeded` on exhaustion.  (The reference also
-        counts each retry as ``retry.<site>`` on the active telemetry
-        collector; that waits for the port's telemetry, ROADMAP Queue 1
-        item 9.)
+        Publishes a ``retry.<site>`` counter per retry on the active
+        telemetry collector; raises the original exception for fatal
+        failures and :class:`RetryBudgetExceeded` on exhaustion.
         """
+        from .. import telemetry
+
         last: Optional[BaseException] = None
         for attempt in range(self.max_retries + 1):
             try:
@@ -92,6 +100,9 @@ class FaultPolicy:
                     raise
                 last = e
                 if attempt < self.max_retries:
+                    rec = telemetry.current()
+                    if rec is not None:
+                        rec.metrics.count(f"retry.{site}")
                     sleep(self.delay(attempt, site))
         raise RetryBudgetExceeded(
             f"site {site!r}: all {self.max_retries + 1} attempts failed; "

@@ -35,8 +35,10 @@ partitioner can split; it is processed in one piece at an enlarged
 capacity (still exact) and counted in ``SpillStats.oversized``.
 
 Each pair runs as a plain call of the operator (the reference compiles
-it with ``jax.jit``).  The reference's ``spill.*`` telemetry spans and
-gauges wait for the port's telemetry (ROADMAP Queue 1 item 9).
+it with ``jax.jit``).  Under an active telemetry collector the engine
+opens the reference's ``spill.write`` / ``spill.read`` /
+``spill.reentry`` spans and publishes the ``spill.*`` gauges, the host's
+memory pressure and the report when it finishes.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import table_ops
 from ..core.context import HPTMTContext
 from ..core.exchange import H1_NAME, H2_NAME, LANES_NAME
@@ -150,16 +153,19 @@ def _write_buckets(store: SpillStore, tag: str, cols: Dict[str, np.ndarray],
     """Write contiguous ``(q, s)`` groups of the permuted chunk as runs."""
     if len(order) == 0:
         return
-    # the reference's "spill.write" span goes here (ROADMAP Queue 1 item 9)
-    qs = q[order]
-    ss = s[order]
-    boundary = np.nonzero((qs[1:] != qs[:-1]) | (ss[1:] != ss[:-1]))[0] + 1
-    starts = np.concatenate([[0], boundary])
-    stops = np.concatenate([boundary, [len(order)]])
-    for a, b in zip(starts, stops):
-        rows = order[a:b]
-        store.write_run(tag, int(qs[a]), int(ss[a]),
-                        {k: v[rows] for k, v in cols.items()}, int(b - a))
+    with telemetry.span("spill.write", tag=tag, rows=len(order),
+                        bytes=sum(int(v.nbytes) for v in cols.values())):
+        qs = q[order]
+        ss = s[order]
+        boundary = np.nonzero((qs[1:] != qs[:-1])
+                              | (ss[1:] != ss[:-1]))[0] + 1
+        starts = np.concatenate([[0], boundary])
+        stops = np.concatenate([boundary, [len(order)]])
+        for a, b in zip(starts, stops):
+            rows = order[a:b]
+            store.write_run(tag, int(qs[a]), int(ss[a]),
+                            {k: v[rows] for k, v in cols.items()},
+                            int(b - a))
 
 
 def _partition_hash(store: SpillStore, tag: str, src, keys: Sequence[str],
@@ -307,18 +313,22 @@ def _load_hash_partition(store: SpillStore, tag: str, q: int,
                          schema: Dict[str, Tuple], keys: Sequence[str],
                          ctx: HPTMTContext, capacity: int) -> DistTable:
     """Re-ingest one partition with TRUE hash-partitioning metadata."""
-    # the reference's "spill.read" span goes here (ROADMAP Queue 1 item 9)
-    tables = []
-    for s in range(ctx.n_shards):
-        cols, n = store.read_partition(tag, q, s)
-        if n == 0:
-            cols = _empty_cols(schema)
-        cols.pop(H1_NAME, None)
-        cols.pop(H2_NAME, None)
-        tables.append(Table.from_arrays(cols, num_rows=n, capacity=capacity,
-                                        device=ctx.device))
-    return DistTable.from_shard_tables(
-        tables, ctx, partitioning=(tuple(keys), ctx.n_shards))
+    with telemetry.span("spill.read", tag=tag, partition=q) as sp:
+        tables = []
+        total = 0
+        for s in range(ctx.n_shards):
+            cols, n = store.read_partition(tag, q, s)
+            total += n
+            if n == 0:
+                cols = _empty_cols(schema)
+            cols.pop(H1_NAME, None)
+            cols.pop(H2_NAME, None)
+            tables.append(Table.from_arrays(cols, num_rows=n,
+                                            capacity=capacity,
+                                            device=ctx.device))
+        sp.attrs["rows"] = total
+        return DistTable.from_shard_tables(
+            tables, ctx, partitioning=(tuple(keys), ctx.n_shards))
 
 
 def _load_range_partition(store: SpillStore, tag: str, q: int,
@@ -332,24 +342,25 @@ def _load_range_partition(store: SpillStore, tag: str, q: int,
     layout the sample-sort exchange would have produced, so the per-pair
     window runs its zero-exchange / zero-sort elided path.
     """
-    # the reference's "spill.read" span goes here (ROADMAP Queue 1 item 9)
-    cols, n = store.read_partition(tag, q)
-    if n == 0:
-        cols = dict(_empty_cols(schema))
-        cols[LANES_NAME] = np.zeros((0, len(keys)), np.uint32)
-    order = np_lex_order(cols[LANES_NAME])
-    cols = {k: v[order] for k, v in cols.items()
-            if k not in (H1_NAME, H2_NAME, LANES_NAME)}
-    per = max(1, math.ceil(n / ctx.n_shards))
-    tables = []
-    for s in range(ctx.n_shards):
-        a, b = min(s * per, n), min((s + 1) * per, n)
-        tables.append(Table.from_arrays(
-            {k: v[a:b] for k, v in cols.items()}, num_rows=b - a,
-            capacity=capacity, device=ctx.device))
-    return DistTable.from_shard_tables(
-        tables, ctx,
-        partitioning=range_partitioning(keys, ascending, ctx.n_shards))
+    with telemetry.span("spill.read", tag=tag, partition=q) as sp:
+        cols, n = store.read_partition(tag, q)
+        sp.attrs["rows"] = n
+        if n == 0:
+            cols = dict(_empty_cols(schema))
+            cols[LANES_NAME] = np.zeros((0, len(keys)), np.uint32)
+        order = np_lex_order(cols[LANES_NAME])
+        cols = {k: v[order] for k, v in cols.items()
+                if k not in (H1_NAME, H2_NAME, LANES_NAME)}
+        per = max(1, math.ceil(n / ctx.n_shards))
+        tables = []
+        for s in range(ctx.n_shards):
+            a, b = min(s * per, n), min((s + 1) * per, n)
+            tables.append(Table.from_arrays(
+                {k: v[a:b] for k, v in cols.items()}, num_rows=b - a,
+                capacity=capacity, device=ctx.device))
+        return DistTable.from_shard_tables(
+            tables, ctx,
+            partitioning=range_partitioning(keys, ascending, ctx.n_shards))
 
 
 def _write_output(store: SpillStore, q: int, dt: DistTable) -> int:
@@ -452,10 +463,13 @@ class SpillResult:
                 for k in pieces[0]}
 
     def to_tset(self):
-        """The TSet bridge of the reference — not in the port yet."""
-        raise NotImplementedError(
-            "SpillResult.to_tset: the TSet dataflow is not ported yet "
-            "(ROADMAP Queue 1 item 9); iterate chunks() instead")
+        """Materialize the chunk stream into a TSet source whose
+        materializations carry this spill's report (closes the store)."""
+        from ..core.dataflow import TSet
+
+        ts = TSet.from_spill(self)
+        self.close()
+        return ts
 
     def close(self) -> None:
         self._store.close()
@@ -518,11 +532,13 @@ def spill_join(left, right, keys: Sequence[str], *, ctx: HPTMTContext,
                                        ctx, lcap)
             rdt = _load_hash_partition(store, "right", q, rschema, keys,
                                        ctx, rcap)
-            # the reference's "spill.reentry" span goes here (ROADMAP
-            # Queue 1 item 9)
-            out, ov = table_ops.join(ldt, rdt, keys, ctx=ctx, how=how,
-                                     method=method, max_matches=max_matches,
-                                     max_probes=max_probes)
+            with telemetry.span("spill.reentry", op="table.join",
+                                partition=q) as sp:
+                out, ov = table_ops.join(ldt, rdt, keys, ctx=ctx, how=how,
+                                         method=method,
+                                         max_matches=max_matches,
+                                         max_probes=max_probes)
+                sp.block(out)
             report.add("join.fanout", ov)
             if out_schema is None:
                 out_schema = _out_schema_of(out)
@@ -572,10 +588,11 @@ def spill_groupby(src, keys: Sequence[str],
                 continue
             cap = _round_capacity(rows, budget_rows)
             dt = _load_hash_partition(store, "in", q, schema, keys, ctx, cap)
-            # the reference's "spill.reentry" span goes here (ROADMAP
-            # Queue 1 item 9)
-            out, ov = table_ops.groupby_aggregate(dt, keys, tuple(aggs),
-                                                  ctx=ctx)
+            with telemetry.span("spill.reentry", op="table.groupby",
+                                partition=q) as sp:
+                out, ov = table_ops.groupby_aggregate(dt, keys, tuple(aggs),
+                                                      ctx=ctx)
+                sp.block(out)
             report.add("groupby.slots", ov)
             if out_schema is None:
                 out_schema = _out_schema_of(out)
@@ -639,11 +656,12 @@ def spill_window(src, partition_by, order_by, aggs, *, ctx: HPTMTContext,
             cap = _round_capacity(per, budget_rows)
             dt = _load_range_partition(store, "in", q, schema, keys, asc,
                                        ctx, cap)
-            # the reference's "spill.reentry" span goes here (ROADMAP
-            # Queue 1 item 9)
-            out, ov = table_ops.window_aggregate(dt, pkeys, okeys, aggs,
-                                                 ctx=ctx, rows=rows,
-                                                 ascending=asc_o)
+            with telemetry.span("spill.reentry", op="table.window",
+                                partition=q) as sp:
+                out, ov = table_ops.window_aggregate(dt, pkeys, okeys, aggs,
+                                                     ctx=ctx, rows=rows,
+                                                     ascending=asc_o)
+                sp.block(out)
             report.add("window.truncated", ov)
             if out_schema is None:
                 out_schema = _out_schema_of(out)
@@ -663,8 +681,14 @@ def spill_window(src, partition_by, order_by, aggs, *, ctx: HPTMTContext,
 def _finish(store: SpillStore, ctx, partitioning, report, stats,
             out_schema) -> SpillResult:
     stats.bytes_spilled = store.bytes_written
-    # the reference publishes the spill.* gauges, the memory pressure and
-    # the report to an active collector here (ROADMAP Queue 1 item 9)
+    rec = telemetry.current()
+    if rec is not None:
+        rec.metrics.gauge("spill.bytes_spilled", stats.bytes_spilled)
+        rec.metrics.gauge("spill.pairs", stats.pairs)
+        rec.metrics.gauge("spill.rows_in", stats.rows_in)
+        rec.metrics.gauge("spill.rows_out", stats.rows_out)
+        telemetry.publish_pressure(rec, "spill")
+        rec.record_overflow(report)
     return SpillResult(store, ctx, partitioning, report, stats, out_schema)
 
 

@@ -210,12 +210,19 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
 
 
 def test_later_slices_raise():
-    # spill= and lazy() are ported; the runtime services are a later slice
+    # the runtime services are ported: a planned collect runs under a
+    # collector and explain(analyze=True) annotates it; process groups
+    # across cards are still a later slice
+    from repro_torch import telemetry
+
     df = DataFrame.from_dict(LEFT, CPU1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        df.lazy().groupby(["g"], [("v", "sum")]).collect(telemetry=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        df.lazy().explain(analyze=True)
+    lf = df.lazy().groupby(["g"], [("v", "sum")])
+    rec = telemetry.Collector()
+    lf.collect(telemetry=rec)
+    assert rec.audits[-1]["consistent"] is True
+    assert "audit: predicted=0 counted=0" in lf.explain(analyze=True)
+    with pytest.raises(NotImplementedError, match="process groups"):
+        HPTMTContext(device="cpu", group=object())
 
 
 def test_port_imports_neither_jax_nor_reference():

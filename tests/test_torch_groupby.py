@@ -555,3 +555,21 @@ def test_set_ops_vs_jax_1_and_4_shards(jax4, kind):
     cols, counts, part, jov = jax_result(jax4, kind)
     assert_blocks_equal(tout, cols, counts, part, msg=kind)
     assert int(tov) == jov
+
+
+def test_plain_segment_sum_of_small_runs_after_a_long_prefix():
+    """Each segment's sum is its own rows' sum: one-row segments of tiny
+    values after 2^18 rows of positive values come back exactly (a float64
+    prefix sum over the whole table carried its rounding, ~1e-11 here,
+    into every later segment), against the JAX reference too."""
+    rng = np.random.default_rng(41)
+    n = 1 << 18
+    v = np.abs(rng.standard_normal(n)).astype(np.float32)
+    v[-100:] = rng.uniform(1e-7, 1e-5, 100).astype(np.float32)
+    seg = np.arange(n, dtype=np.int32)
+    got = tsops.segment_reduce_fused(torch.from_numpy(v)[:, None],
+                                     torch.from_numpy(seg), n)[:, 0].numpy()
+    np.testing.assert_array_equal(got, v)
+    ref = np.asarray(jsr.segment_reduce(jnp.asarray(v), jnp.asarray(seg), n,
+                                        "sum"))
+    np.testing.assert_array_equal(got, ref)

@@ -398,8 +398,13 @@ def test_scan_stats_reset_and_chunks_vs_jax(tmp_path):
     assert len(chunks) == len(jchunks) == 5
     for c, jc in zip(chunks, jchunks):
         assert_blocks_equal(c, *jax_blocks(jc))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        src.to_tset()
+    # the TSet bridge sources the same chunk stream
+    ts = src.to_tset()
+    got = ts.to_numpy()
+    want = {k: np.concatenate([c.to_numpy()[k] for c in chunks])
+            for k in ("user_id", "value")}
+    for k, v in want.items():
+        np.testing.assert_array_equal(np.sort(got[k]), np.sort(v))
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

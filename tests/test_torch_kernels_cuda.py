@@ -547,3 +547,51 @@ def test_model_prefill_and_decode_flash_vs_plain(dev, window):
         out[flash] = [s.cpu().numpy() for s in steps]
     for got, exp in zip(out[True], out[False]):
         np.testing.assert_allclose(got, exp, rtol=1e-4, atol=1e-4)
+
+
+
+def _tap(monkeypatch, name):
+    """Record the inputs of every launch of ``srk.<name>`` (copies);
+    returns the records and the real kernel wrapper."""
+    calls = []
+    real = getattr(srk, name)
+
+    def spy(*args):
+        calls.append([a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args])
+        return real(*args)
+
+    monkeypatch.setattr(srk, name, spy)
+    return calls, real
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_segment_kernels_on_a_tset_chunk(dev, monkeypatch, n_shards):
+    """The combiner groupby of a chunked TSet launches both segment
+    kernels on every chunk; each launch's inputs, held against the plain
+    version: counts, min and max bit for bit, sums to 1e-5 * sum|v|."""
+    from repro_torch.core import HPTMTContext
+    from repro_torch.core.dataflow import TSet
+    from repro_torch.dataframe import DataFrame
+
+    ctx = HPTMTContext(n_shards=n_shards, device="cuda")
+    n = 1 << 16
+    data = {"k": RNG.integers(0, 1 << 12, n).astype(np.int32),
+            "v": RNG.normal(size=n).astype(np.float32)}
+    dt = DataFrame.from_dict(data, ctx, bucket_factor=2.0).table
+    fused, fused_kernel = _tap(monkeypatch, "segment_reduce_fused_cuda")
+    one, one_kernel = _tap(monkeypatch, "segment_reduce_cuda")
+    out = TSet.from_table(dt, ctx, chunk_rows=dt.capacity // 4).groupby(
+        ["k"], [("v", "sum"), ("v", "min"), ("v", "max"),
+                ("v", "count")]).collect()
+    assert int(out.to_numpy()["v_count"].sum()) == n
+    # a partial pass a chunk (a shard each) and the merge
+    assert len(fused) >= 5 and len(one) >= 10, (len(fused), len(one))
+    for v, seg, s in fused:
+        got = fused_kernel(v, seg, s)
+        exp = srr.segment_reduce_fused(v, seg, s)
+        scale = srr.segment_reduce_fused(v.abs(), seg, s)
+        assert bool(((got - exp).abs() <= 1e-5 * scale).all())
+    for v, seg, s, op in one:
+        assert _minmax_bits_equal(one_kernel(v, seg, s, op),
+                                  srr.segment_reduce(v, seg, s, op))

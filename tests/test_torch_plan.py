@@ -474,17 +474,24 @@ def test_build_time_validation():
         bf.lazy().topk(["v"], 0)
 
 
-def test_runtime_services_wait_for_item_9():
+def test_runtime_services_wait_for_item_9(tmp_path):
+    # item 9 is ported: every runtime service of collect() gives the
+    # plain collect's rows
+    from repro_torch import telemetry
+    from repro_torch.resilience import FaultPolicy
+
     bf, _ = _frames(PORT)
     lf = bf.lazy().groupby(["k1"], [("v", "sum")])
-    for kw in ({"telemetry": object()}, {"policy": object()},
-               {"ledger": "l.jsonl"}, {"qerror_threshold": 2.0}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            lf.collect(**kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lf.refine(object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lf.explain(analyze=True)
+    want = lf.collect().to_numpy()
+    rec = telemetry.Collector()
+    for kw in ({"telemetry": rec},
+               {"policy": FaultPolicy(checkpoint_dir=str(tmp_path / "s"))},
+               {"ledger": str(tmp_path / "l.jsonl")},
+               {"telemetry": telemetry.Collector(), "qerror_threshold": 100.0}):
+        assert_rows_equal(lf.collect(**kw).to_numpy(), want)
+    assert len(telemetry.ledger_read(str(tmp_path / "l.jsonl"))) == 1
+    assert_rows_equal(lf.refine(rec).collect().to_numpy(), want)
+    assert "audit: predicted=0 counted=0" in lf.explain(analyze=True)
     # jit= keeps its keyword and runs the same eager program
     assert_rows_equal(lf.collect(jit=True).to_numpy(),
                       lf.collect(jit=False).to_numpy())

@@ -466,14 +466,20 @@ def test_report_threads_through_lineage():
     # derived frames inherit the lineage report
     assert g.select(lambda c: c["k"] >= 0).overflow_report.total_recovered \
         == n
-    # the TSet bridge waits for the dataflow slice
     with spill_groupby(df.table, ("k",), (("v", "sum"),), ctx=CPU1,
                        budget_rows=64) as res:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            res.to_tset()
         chunks = list(res.chunks())
     assert sum(len(c.to_numpy()["k"]) for c in chunks) == 50
     assert all(c.partitioning == (("k",), 1) for c in chunks)
+    # the TSet bridge carries the spill's report into every
+    # materialization, and the chunks' layout into its barriers
+    with spill_groupby(df.table, ("k",), (("v", "sum"),), ctx=CPU1,
+                       budget_rows=64) as res:
+        ts = res.to_tset()
+    out = ts.collect()
+    assert out.to_numpy()["k"].shape == (50,)
+    assert out.partitioning == (("k",), 1)
+    assert ts.overflow_report.recovered == {"spill.groupby": n}
 
 
 def test_scan_stats_as_report():
