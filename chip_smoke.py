@@ -36,7 +36,9 @@ Phases (every failed check raises; nothing is caught):
    96) in bfloat16 and float32, smollm's GQA (8, 15/5, 1024, 64), a
    mixtral-like (1, 32/8, 8192, 128) with ``window=4096``, a decode-like
    query at ``q_offset`` over a right-padded cache (``kv_len``) in float32
-   and bfloat16, and a ragged length of 1000 — against its plain version
+   and bfloat16, a ragged length of 1000, qwen2-moe's (8, 16, 1024, 128),
+   internvl2's patch-prefixed (8, 64/8, 1280, 128) and a non-causal
+   whisper-encoder case (8, 16, 1500, 64) — against its plain version
    to 2e-4 (float32, the SIMT kernel) and 2e-2 (bfloat16, the tensor-core
    kernel), each case naming the instance that ran (``impl``), timed
    beside ``scaled_dot_product_attention``;
@@ -72,7 +74,8 @@ Phases (every failed check raises; nothing is caught):
    weights drawn on the card from ``--seed``: ``Engine.generate`` on 8
    prompts of 1024 tokens, greedy, 64 new tokens (``max_len`` = 1096, the
    launcher's rule).  The flash kernel must launch once per layer in the
-   prefill, every launch on the tensor-core instance; the prefill's
+   prefill, every launch on the tensor-core instance and within 2e-2 of
+   the plain ``attend`` on its own q, k and v; the prefill's
    last-position logits must agree with the plain attention path
    (``use_flash=False``) to 2e-2 of the largest logit, and a float32
    copy of the model must give identical greedy tokens on both paths
@@ -181,7 +184,33 @@ Phases (every failed check raises; nothing is caught):
    → check against phase 3's oracle) retries one injected ``scan.read``
    fault through its policy, and a second engine resumes from the
    journal without running a task;
-18. summary — the script's seconds so far, the ``kernels`` JSON line, the
+18.-24. serving every other family of the reference through the same
+   ``Engine.generate`` traffic as phases 8-9 (8 prompts of 1024 tokens,
+   greedy, 64 new tokens; random bf16 weights from ``--seed``; stub
+   ``0.02 * normal`` frontend embeddings): qwen2-moe-a2.7b (24 layers, 60
+   experts padded to 64, 4 shared), minicpm3-4b (62 layers of MLA),
+   xlstm-125m (12 layers), whisper-medium (24 + 24 layers over 1500
+   frames), then cut in depth where bf16 would not fit 80 GB whole:
+   mixtral-8x7b (8 of 32 layers), jamba-v0.1-52b (one 8-layer group: 7
+   Mamba, 1 attention, 4 MoE) and internvl2-76b (8 of 80 layers, 256
+   patches prefixing the prompt), every width as published.  Flash
+   launches once per GQA self-attention layer of the decoder in the
+   prefill, all on the tensor-core kernel (24 / 0 / 0 / 24 / 8 / 1 / 8);
+   where it launches, each launch's output agrees with the plain
+   ``attend`` on the same q, k and v to 2e-2 (phase 2's bf16 tolerance),
+   the prefill logits of a dense model with the plain path's to 2e-2 of
+   the largest logit (a MoE model's are printed: bf16 rounding flips a
+   random router's near-ties), and a float32 copy gives identical greedy
+   tokens on both (batch 2, prompt 256, 16 tokens; on a mismatch the
+   smallest MoE gate margin is printed before the check fails);
+   minicpm3, jamba (MoE capacity 8, the S-token prefill's expert ids
+   replayed) and xlstm decode after a prefill of 1023 tokens agrees with
+   a prefill of 1024 to 3e-2, minicpm3's absorbed decode with the naive
+   one to 2e-2 in float32;
+   the MoE dropped fraction is printed for a prefill and a decode step.
+   Prefill ms, decode ms a token, tokens/s and peak GiB: medians of 3
+   runs, one run for the configs cut in depth;
+25. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -189,9 +218,10 @@ Wall times of phases 3-12 are medians of 3 runs after one checked warm-up
 run; kernel launch counts are those of the checked runs.  ``--profile``
 adds one ``torch.profiler`` run of each of phases 3-10, of phase 12's
 re-entry path, of phase 14's 4-shard planned chain, of phase 15's 4-shard
-``groupby_k`` and ``join_groupby`` pipelines and of phase 16's traced
-4-shard main path (device busy share, top kernels; a table of each in
-the output directory that ``profile_run`` writes to).
+``groupby_k`` and ``join_groupby`` pipelines, of phase 16's traced
+4-shard main path and of one generate of qwen2-moe and of jamba (device
+busy share, top kernels; a table of each in the output directory that
+``profile_run`` writes to).
 Float32 matrix products run in full float32 (TF32 off, PyTorch's
 default, set here).
 """
@@ -233,6 +263,15 @@ QS = (0.01, 0.5, 0.99)
 WINDOWS = (1, 7, 32, 512, 4096, 8192)
 SERVE = {"batch": 8, "prompt": 1024, "gen": 64}
 SERVE_F32 = {"batch": 2, "prompt": 256, "gen": 16}
+# phases 18-24: config, depth on the card (None: all its layers), timed
+# runs; a cut config is one that does not fit 80 GB whole in bf16
+FAMILIES = [("qwen2-moe-a2.7b", None, 3), ("minicpm3-4b", None, 3),
+            ("xlstm-125m", None, 3), ("whisper-medium", None, 3),
+            ("mixtral-8x7b", 8, 1), ("jamba-v0.1-52b", 8, 1),
+            ("internvl2-76b", 8, 1)]
+DECODE_VS_PREFILL = ("minicpm3-4b", "jamba-v0.1-52b", "xlstm-125m")
+PROFILED = ("phi3-mini-3.8b", "smollm-360m", "qwen2-moe-a2.7b",
+            "jamba-v0.1-52b")
 CART_ROWS = 1 << 12
 ROWS_PER_GROUP, K_BELOW = 1 << 20, 1 << 22
 
@@ -793,6 +832,12 @@ FLASH_CASES = [
     ("decode-like bf16", 8, 32, 32, 1, 1096, 96, "bfloat16", True, None,
      1024, 1023),
     ("ragged", 2, 8, 8, 1000, 1000, 96, "float32", True, None, None, 0),
+    ("qwen2-moe prefill", 8, 16, 16, 1024, 1024, 128, "bfloat16", True,
+     None, None, 0),
+    ("internvl2 prefill", 8, 64, 8, 1280, 1280, 128, "bfloat16", True, None,
+     None, 0),
+    ("whisper encoder", 8, 16, 16, 1500, 1500, 64, "bfloat16", False, None,
+     None, 0),
 ]
 
 
@@ -869,88 +914,340 @@ def flash_kernel_phase(dev):
     return row, cases
 
 
-def set_use_flash(model, flag: bool) -> None:
-    """Switch the model's self-attention between the flash kernel and the
-    plain ``attend`` (the config every module reads)."""
-    import dataclasses
+def set_cfg(model, **changes) -> None:
+    """Set fields of the config every module of ``model`` reads: the flash
+    switch (``use_flash=None`` is the default, the kernel on the card in
+    prefill), MLA's absorbed decode, the MoE capacity factor."""
     for m in model.modules():
         if hasattr(m, "cfg"):
-            m.cfg = dataclasses.replace(m.cfg, use_flash=flag)
+            m.cfg = dataclasses.replace(m.cfg, **changes)
 
 
-def serve_phase(arch: str, dev, seed: int, launches, profile: bool):
-    """Serve ``arch`` at its full published size on the card; check the
-    flash launches, the plain path and float32 greedy tokens."""
-    import dataclasses
+def flash_layers(cfg) -> int:
+    """Self-attention layers that run the flash kernel in prefill: every
+    GQA ``attn`` layer of the decoder (MLA and the other mixers attend
+    without it; an encoder runs ``train`` mode, the plain path)."""
+    if cfg.attention == "mla":
+        return 0
+    return cfg.block_pattern.count("attn") * cfg.n_groups
+
+
+def router_gates(xn, router, cfg):
+    """A MoE layer's softmax gates over every expert (``routing``'s)."""
+    from repro_torch.models import moe
+    return torch.softmax(moe.router_logits(xn, router, cfg), -1)
+
+
+class RouteTape:
+    """Records the expert ids of every MoE routing call of a run, then
+    replays them in another run, so that both route every token alike.
+    Gates are the replaying run's own, taken at the replayed ids;
+    ``rerouted`` counts the tokens whose own top-k differed from the
+    replayed one.  A recording also keeps the smallest gap between a
+    token's k-th and (k+1)-th gate (``min_margin``)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe.routing
+        self.tape, self.rerouted, self.min_margin = [], 0, None
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        self.moe.routing = fn
+        try:
+            yield self
+        finally:
+            self.moe.routing = self.real
+
+    def recording(self):
+        self.tape, self.min_margin = [], None
+
+        def record(xn, router, cfg):
+            out = self.real(xn, router, cfg)
+            self.tape.append(out[1])
+            top = torch.topk(router_gates(xn, router, cfg),
+                             cfg.experts_per_token + 1).values
+            gap = float((top[..., -2] - top[..., -1]).min())
+            self.min_margin = (gap if self.min_margin is None
+                               else min(gap, self.min_margin))
+            return out
+
+        return self._patched(record)
+
+    def replaying(self, positions=slice(None)):
+        """Replay the tape, each call's ids cut to ``positions``."""
+        queue = list(self.tape)
+
+        def replay(xn, router, cfg):
+            _, own, aux, z = self.real(xn, router, cfg)
+            ids = queue.pop(0)[:, positions]
+            self.rerouted += int((own.sort(-1).values
+                                  != ids.sort(-1).values).any(-1).sum())
+            g = router_gates(xn, router, cfg).gather(-1, ids)
+            return (g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9),
+                    ids, aux, z)
+
+        self.rerouted = 0
+        return self._patched(replay)
+
+
+class FlashTap:
+    """Holds every flash launch of a run against the plain ``attend`` on
+    the same q, k and v (the model's own activations), with phase 2's
+    bf16 tolerance: a check of the kernel in place that no rounding
+    upstream of the layer can move."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops
+        self.ops, self.real = ops, ops.flash_attention
+        self.layers, self.max_abs_err, self.bad = 0, 0.0, []
+
+    def __enter__(self):
+        from repro_torch.models.layers import attend
+
+        def tapped(q, k, v, *, causal=True, window=None):
+            o = self.real(q, k, v, causal=causal, window=window)
+            pos = torch.arange(q.shape[2], device=q.device)
+            exp = attend(q, k, v, q_pos=pos, kv_pos=pos, causal=causal,
+                         window=window).float()
+            err = (o.float() - exp).abs()
+            self.max_abs_err = max(self.max_abs_err, float(err.max()))
+            if not bool((err <= 2e-2 + 2e-2 * exp.abs()).all()):
+                self.bad.append((self.layers, float(err.max())))
+            self.layers += 1
+            return o
+
+        self.ops.flash_attention = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+def rel_err(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def serve_phase(arch: str, dev, seed: int, launches, profile: bool,
+                depth=None, runs: int = 3):
+    """Serve ``arch`` at its full published width (``depth`` layers when
+    given, else all) on the card: tokens, flash launches, the plain path,
+    float32 greedy tokens, and for the families that have them the MoE
+    drops, decode against prefill and MLA's absorbed decode."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import Engine, ServeConfig
 
+    marks = {"start": time.perf_counter()}
     cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     rng = np.random.default_rng(seed + 2)
     prompts = rng.integers(1, cfg.vocab_size, (b, s), dtype=np.int32)
-    model = LM(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    engine = Engine(model, ServeConfig(max_len=s + n + 8))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = LM(cfg, gen, dev)
+    fe = None
+    if cfg.frontend is not None or cfg.is_encoder_decoder:
+        # stub audio frames / image patches, as the launchers make them
+        fe = 0.02 * torch.randn((b, cfg.frontend_seq, cfg.d_model),
+                                generator=gen, device=dev)
+    prefix = cfg.frontend_seq if cfg.frontend == "vision" else 0
+    max_len = prefix + s + n + 8
+    engine = Engine(model, ServeConfig(max_len=max_len))
+    n_flash = flash_layers(cfg)
 
+    marks["build"] = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     launches.reset()
-    out = engine.generate(prompts, n)
+    out = engine.generate(prompts, n, frontend_embeds=fe)
     counts, _ = launches.read()
     instances = {k: c.n for k, c in launches.flash_instances.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(out.shape == (b, n) and out.dtype == np.int32, f"{arch}: tokens")
     check(((out >= 0) & (out < cfg.vocab_size)).all(), f"{arch}: token ids")
-    check(counts["flash_attention"] == cfg.n_layers,
+    check(counts["flash_attention"] == n_flash,
           f"{arch}: flash launches {counts['flash_attention']} per prefill, "
-          f"expected {cfg.n_layers}")
-    check(instances == {"wgmma": cfg.n_layers, "simt": 0},
+          f"expected {n_flash}")
+    check(instances == {"wgmma": n_flash, "simt": 0},
           f"{arch}: bf16 prefill launches by instance {instances}, expected "
-          f"all {cfg.n_layers} on the tensor-core kernel")
+          f"all {n_flash} on the tensor-core kernel")
 
     def prefill():
-        logits, _ = engine.prefill(prompts)
+        logits, _ = engine.prefill(prompts, fe)
         torch.cuda.synchronize()
         return logits
 
-    flash_logits = prefill()
+    fields = {}
+    with FlashTap() as tap:
+        flash_logits = prefill()
     check(bool(flash_logits.isfinite().all()), f"{arch}: finite logits")
-    set_use_flash(model, False)
-    plain_logits = prefill()
-    set_use_flash(model, True)
-    rel = float((flash_logits - plain_logits).abs().max()
-                / plain_logits.abs().max())
-    check(rel < 2e-2, f"{arch}: flash vs plain prefill logits rel {rel}")
-    del flash_logits, plain_logits
+    if n_flash:
+        # each layer's flash output against the plain attend on its own
+        # inputs, then the logits against the plain path's (2e-2 of the
+        # largest logit); a MoE model's logits are reported, not held: a
+        # random router's top-k near-ties flip under bf16 rounding, and a
+        # flipped token's later layers go elsewhere
+        check(tap.layers == n_flash and not tap.bad,
+              f"{arch}: flash against plain attend in {tap.layers} layers, "
+              f"outside 2e-2: {tap.bad}")
+        fields["flash_vs_plain_attention_max_abs_err"] = tap.max_abs_err
+        set_cfg(model, use_flash=False)
+        plain_logits = prefill()
+        set_cfg(model, use_flash=None)
+        rel = rel_err(flash_logits, plain_logits)
+        fields["flash_vs_plain_rel"] = rel
+        if not cfg.is_moe:
+            check(rel < 2e-2, f"{arch}: flash vs plain prefill logits rel "
+                  f"{rel}")
+        del plain_logits
+    del flash_logits
 
-    pre = timed_runs(prefill)
-    gen = timed_runs(lambda: engine.generate(prompts, n))
-    if profile:
-        profile_run(f"serve_{arch}", lambda: engine.generate(prompts, n))
+    tape = RouteTape()
+    toks = torch.as_tensor(prompts, device=dev)
+    last = torch.tensor([prefix + s - 1], dtype=torch.int32, device=dev)
+    if cfg.is_moe:
+        # the reference's drops: prefill groups of one row (capacity
+        # 1.25x a row's share), decode one group of the batch (capacity 4)
+        with torch.inference_mode():
+            _, cache, aux_p = model(toks, mode="prefill",
+                                    cache_len=max_len, frontend_embeds=fe,
+                                    last_logit_only=True)
+            _, _, aux_d = model(toks[:, -1:], mode="decode", cache=cache,
+                                positions=last + 1)
+        n_moe = sum(type(ly.ffn).__name__ == "MoE" for ly in model.layers)
+        fields["moe_dropped_frac"] = {
+            "prefill": float(aux_p["moe_dropped_frac"]) / n_moe,
+            "decode": float(aux_d["moe_dropped_frac"]) / n_moe,
+            "moe_layers": n_moe}
+        del cache
+    if arch in DECODE_VS_PREFILL:
+        # the reference's own check: decode after a prefill of S-1 tokens
+        # against a prefill of S, 3e-2 of the largest logit (MoE capacity
+        # 8: the two groupings drop nothing).  A MoE model's two runs
+        # replay the S-token prefill's expert ids, since bf16 rounding
+        # flips a random router's near-ties; the replay cannot see a fault
+        # in decode's own choice of experts, which the CPU tests hold bit
+        # for bit against the reference
+        if cfg.is_moe:
+            set_cfg(model, capacity_factor=8.0)
+
+        def split(first=contextlib.nullcontext, then=contextlib.nullcontext,
+                  absorb=False):
+            with torch.inference_mode():
+                with first():
+                    _, cache, _ = model(
+                        toks[:, :-1], mode="prefill", cache_len=max_len,
+                        frontend_embeds=fe, last_logit_only=True)
+                with then():
+                    dec, _, _ = model(toks[:, -1:], mode="decode",
+                                      cache=cache, positions=last)
+                if absorb:
+                    set_cfg(model, mla_absorb=True)
+                    absorbed, _, _ = model(toks[:, -1:], mode="decode",
+                                           cache=cache, positions=last)
+                    set_cfg(model, mla_absorb=False)
+                    return dec[:, 0], absorbed[:, 0]
+            return dec[:, 0], None
+
+        with torch.inference_mode(), tape.recording():
+            full, _, _ = model(toks, mode="prefill", cache_len=max_len,
+                               frontend_embeds=fe, last_logit_only=True)
+        full = full[:, -1]
+        if cfg.is_moe:
+            fields["decode_vs_prefill_free_routing_rel"] = rel_err(
+                split()[0], full)
+            dec, _ = split(lambda: tape.replaying(slice(None, -1)),
+                           lambda: tape.replaying(slice(-1, None)))
+            fields["decode_vs_prefill_rerouted_tokens"] = tape.rerouted
+        else:
+            dec, absorbed = split(absorb=cfg.attention == "mla")
+        set_cfg(model, capacity_factor=cfg.capacity_factor)
+        rel = rel_err(dec, full)
+        fields["decode_vs_prefill_rel"] = rel
+        check(rel < 3e-2, f"{arch}: decode vs prefill logits rel {rel} "
+              f"({fields})")
+        if cfg.attention == "mla":
+            # bf16 here: the absorbed path rounds its latent scores to
+            # bf16 (the reference's formulation); held in float32 below
+            fields["absorbed_vs_naive_bf16_rel"] = rel_err(absorbed, dec)
+            del absorbed
+        del full, dec
+
+    marks["checks"] = time.perf_counter()
+    pre = timed_runs(prefill, runs)
+    gen_runs = timed_runs(lambda: engine.generate(prompts, n,
+                                                  frontend_embeds=fe), runs)
+    marks["timed"] = time.perf_counter()
+    if profile and arch in PROFILED:
+        profile_run(f"serve_{arch}", lambda: engine.generate(
+            prompts, n, frontend_embeds=fe))
     del engine, model
     torch.cuda.empty_cache()
 
-    # float32: identical greedy tokens on the kernel and the plain path
-    f = SERVE_F32
-    model = LM(dataclasses.replace(cfg, dtype="float32"),
-               torch.Generator(device=dev).manual_seed(seed), dev)
-    engine = Engine(model, ServeConfig(max_len=f["prompt"] + f["gen"] + 8))
-    small = prompts[:f["batch"], :f["prompt"]]
-    toks = engine.generate(small, f["gen"])
-    set_use_flash(model, False)
-    plain_toks = engine.generate(small, f["gen"])
-    check(np.array_equal(toks, plain_toks),
-          f"{arch}: float32 greedy tokens differ between flash and plain")
-    del engine, model
-    torch.cuda.empty_cache()
+    if n_flash or cfg.attention == "mla":
+        f = SERVE_F32
+        model = LM(dataclasses.replace(cfg, dtype="float32"),
+                   torch.Generator(device=dev).manual_seed(seed), dev)
+        engine = Engine(model, ServeConfig(
+            max_len=prefix + f["prompt"] + f["gen"] + 8))
+        small = prompts[:f["batch"], :f["prompt"]]
+        fe_small = None if fe is None else fe[:f["batch"]]
+    if n_flash:
+        # float32: identical greedy tokens on the kernel and the plain path
+        launches.reset()
+        toks32 = engine.generate(small, f["gen"], frontend_embeds=fe_small)
+        simt = launches.flash_instances["simt"].n
+        check(simt == n_flash, f"{arch}: float32 prefill ran {simt} SIMT "
+              f"flash launches, expected {n_flash}")
+        set_cfg(model, use_flash=False)
+        with tape.recording():
+            plain_toks = engine.generate(small, f["gen"],
+                                         frontend_embeds=fe_small)
+        if not np.array_equal(toks32, plain_toks):
+            emit(f"serve_{arch}_f32_mismatch", flash=toks32.tolist(),
+                 plain=plain_toks.tolist(), min_gate_margin=tape.min_margin)
+        check(np.array_equal(toks32, plain_toks),
+              f"{arch}: float32 greedy tokens differ between flash and plain")
+        fields["f32_tokens_equal"] = True
+        if cfg.is_moe:
+            fields["f32_min_gate_margin"] = tape.min_margin
+    if cfg.attention == "mla":
+        # the reference's check (tests/test_models.py): absorbed MLA decode
+        # against the naive expansion, 2e-2 of the largest logit, here in
+        # float32 at full width
+        toks32 = torch.as_tensor(small, device=dev)
+        pos = torch.tensor([f["prompt"] - 1], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            _, cache, _ = model(toks32[:, :-1], mode="prefill",
+                                cache_len=f["prompt"], last_logit_only=True)
+            naive, _, _ = model(toks32[:, -1:], mode="decode", cache=cache,
+                                positions=pos)
+            set_cfg(model, mla_absorb=True)
+            absorbed, _, _ = model(toks32[:, -1:], mode="decode",
+                                   cache=cache, positions=pos)
+        rel = rel_err(absorbed, naive)
+        check(rel < 2e-2, f"{arch}: float32 absorbed vs naive decode rel "
+              f"{rel}")
+        fields["absorbed_vs_naive_f32_rel"] = rel
+        del cache, naive, absorbed
+    if n_flash or cfg.attention == "mla":
+        del engine, model
+        torch.cuda.empty_cache()
 
-    pre_s, gen_s = statistics.median(pre), statistics.median(gen)
+    marks["float32"] = time.perf_counter()
+    pre_s, gen_s = statistics.median(pre), statistics.median(gen_runs)
+    steps = list(marks)
+    fields["phase_seconds"] = {b: marks[b] - marks[a]
+                               for a, b in zip(steps, steps[1:])}
     emit(f"serve_{arch}", launches=counts, flash_instances=instances,
+         layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers or None,
+         frontend_seq=cfg.frontend_seq or None,
          batch=b, prompt=s, new_tokens=n,
          prefill_ms=pre_s * 1e3, decode_ms_per_token=(gen_s - pre_s)
          / (n - 1) * 1e3, generate_s=gen_s, tokens_per_s=b * n / gen_s,
-         prefill_runs_s=pre, generate_runs_s=gen, peak_gib=peak,
-         flash_vs_plain_rel=rel, f32_tokens_equal=True)
+         prefill_runs_s=pre, generate_runs_s=gen_runs, peak_gib=peak,
+         **fields)
 
 
 def make_events(seed: int):
@@ -2506,7 +2803,17 @@ def main() -> int:
         new_s["recovery"] = time.perf_counter() - t0
     emit("services_seconds", **new_s)
 
-    # 18. summary
+    # 18.-24. serving every other family: MoE, MLA, xLSTM, encoder-decoder,
+    # then the configs cut in depth (MoE with a window, hybrid, VLM)
+    family_s = {}
+    for arch, depth, runs in FAMILIES:
+        t0 = time.perf_counter()
+        serve_phase(arch, dev, args.seed, launches, args.profile, depth,
+                    runs)
+        family_s[arch] = time.perf_counter() - t0
+    emit("families_seconds", total=sum(family_s.values()), **family_s)
+
+    # 25. summary
     kernels = []
     for r in krows:
         name = r["name"]

@@ -213,9 +213,9 @@ def main() -> int:
             engine = Engine(model, ServeConfig(
                 max_len=serve["prompt"] + serve["gen"] + 8))
             rel = {}
-            chip_smoke.set_use_flash(model, False)
+            chip_smoke.set_cfg(model, use_flash=False)
             plain = engine.prefill(prompts)[0]
-            chip_smoke.set_use_flash(model, True)
+            chip_smoke.set_cfg(model, use_flash=True)
             for name in logit_names:
                 use(names[0] if name == "simt" else name)
                 fao.flash_attention = (simt_path if name == "simt"

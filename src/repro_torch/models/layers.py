@@ -1,18 +1,21 @@
-"""Core tensor-operator layers: norms, RoPE, GQA attention with a KV cache,
-SwiGLU MLP.
+"""Core tensor-operator layers: norms, RoPE, GQA attention with a KV cache
+(self- and cross-attention), MLA, SwiGLU MLP.
 
-Ports ``src/repro/models/layers.py`` without MLA.  Each block is an
-``nn.Module`` holding the reference's parameters under the reference's
-names and layouts (``x @ w`` with ``w`` stored ``(in, out)``), stored in
-the model's compute dtype: the reference keeps float32 parameters and casts
-them at every use (``params["wq"].astype(dt)``), which rounds the same way.
+Ports ``src/repro/models/layers.py``.  Each block is an ``nn.Module``
+holding the reference's parameters under the reference's names and layouts
+(``x @ w`` with ``w`` stored ``(in, out)``), stored in the model's compute
+dtype: the reference keeps float32 parameters and casts them at every use
+(``params["wq"].astype(dt)``), which rounds the same way.  Leaves the
+reference uses in float32 without a cast are stored in float32
+(:func:`f32_param`).
 
 Attention dispatch: in prefill the flash kernel
-(``repro_torch.kernels.flash_attention``) runs by default on the card —
-the CUDA kernel for CUDA tensors, its plain version for CPU tensors when a
-config asks for it (``use_flash=True``); decode and training use the plain
-masked-softmax :func:`attend`.  Caches are updated in place: the decode
-step writes the new K/V into the tensors the prefill built instead of
+(``repro_torch.kernels.flash_attention``) runs GQA self-attention by
+default on the card — the CUDA kernel for CUDA tensors, its plain version
+for CPU tensors when a config asks for it (``use_flash=True``); decode,
+training, cross-attention and MLA use the plain masked-softmax
+:func:`attend`.  Caches are updated in place: the decode step writes the
+new K/V (or MLA latent) into the tensors the prefill built instead of
 copying the cache, and returns the same tensors.
 """
 from __future__ import annotations
@@ -43,6 +46,12 @@ def dense_param(shape, generator: torch.Generator, dtype: torch.dtype,
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) / math.sqrt(fan_in)
     return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def f32_param(w: torch.Tensor) -> nn.Parameter:
+    """A leaf the reference uses in float32 without a cast (router, gate
+    and decay parameters): kept in float32 whatever the compute dtype."""
+    return nn.Parameter(w.to(torch.float32), requires_grad=False)
 
 
 # ---------------------------------------------------------------------------
@@ -109,31 +118,43 @@ def _mask_for_chunk(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool = True,
-           window: Optional[int] = None) -> torch.Tensor:
-    """Masked softmax attention.
+           window: Optional[int] = None, sm_scale: Optional[float] = None,
+           q_chunk: int = 256) -> torch.Tensor:
+    """Masked softmax attention, over query chunks of ``q_chunk`` rows.
 
-    q (B,Hq,S,D); k,v (B,Hkv,L,Dv); q_pos (S,), kv_pos (L,) absolute
-    positions (-1 = empty cache slot).  KV heads are repeated up to Hq, as
-    in the reference.  The reference streams queries in chunks to bound
-    the XLA score tile; each row's arithmetic is the same unchunked.
+    q (B,Hq,S,D); k (B,Hkv,L,D); v (B,Hkv,L,Dv) → (B,Hq,S,Dv); q_pos (S,),
+    kv_pos (L,) absolute positions (-1 = empty cache slot).  KV heads are
+    repeated up to Hq, as in the reference.  The chunks bound the float32
+    score tile to ``(B, Hq, q_chunk, L)``; each row's arithmetic is the
+    same whatever the chunk (the reference pads the last chunk, which
+    changes no real row).
     """
     hq, hkv = q.shape[1], k.shape[1]
-    scale = q.shape[-1] ** -0.5
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if hkv != hq:
         rep = hq // hkv
         k = torch.repeat_interleave(k, rep, dim=1)
         v = torch.repeat_interleave(v, rep, dim=1)
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
-    scores = torch.einsum("bhsd,bhld->bhsl", q.to(torch.float32), kf) * scale
-    allow = _mask_for_chunk(q_pos, kv_pos, causal, window)
-    scores = torch.where(allow, scores, -1e30)
-    m = torch.amax(scores, dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
-    p = torch.where(allow, p, 0.0)
-    denom = torch.sum(p, dim=-1, keepdim=True)
-    o = torch.einsum("bhsl,bhld->bhsd", p, vf) / torch.clamp(denom, min=1e-30)
-    return o.to(q.dtype)
+
+    def one_chunk(qc, qp):
+        scores = torch.einsum("bhsd,bhld->bhsl", qc.to(torch.float32),
+                              kf) * scale
+        allow = _mask_for_chunk(qp, kv_pos, causal, window)
+        scores = torch.where(allow, scores, -1e30)
+        m = torch.amax(scores, dim=-1, keepdim=True)
+        p = torch.exp(scores - m)
+        p = torch.where(allow, p, 0.0)
+        denom = torch.sum(p, dim=-1, keepdim=True)
+        o = torch.einsum("bhsl,bhld->bhsd", p, vf)
+        return (o / torch.clamp(denom, min=1e-30)).to(q.dtype)
+
+    s = q.shape[2]
+    if s <= q_chunk:
+        return one_chunk(q, q_pos)
+    return torch.cat([one_chunk(q[:, :, i:i + q_chunk], q_pos[i:i + q_chunk])
+                      for i in range(0, s, q_chunk)], dim=2)
 
 
 def _use_flash_kernel(cfg: ModelConfig, device: torch.device) -> bool:
@@ -217,11 +238,12 @@ def _pad_cache(k, v, positions, length: int):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention block (SWA + KV cache; cross-attention not ported)
+# GQA attention block (SWA + self/cross + KV cache)
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
-    """Pre-norm causal GQA self-attention; ``forward`` returns
-    (residual_delta, new_cache)."""
+    """Pre-norm GQA attention; ``forward`` returns (residual_delta,
+    new_cache).  With ``kv_source`` it is cross-attention: K/V from the
+    normed source, no RoPE, no mask but empty slots, no cache."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  dtype: torch.dtype, device: torch.device):
@@ -238,25 +260,30 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 mode: str = "train", cache: Optional[Cache] = None,
                 kv_source: Optional[torch.Tensor] = None,
+                causal: bool = True,
                 cache_len: int = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
-        if kv_source is not None:
-            raise NotImplementedError(
-                "cross-attention (kv_source) is not ported yet: "
-                "ROADMAP Queue 1 item 10e (encoder-decoder and VLM)")
         cfg = self.cfg
         b, s, d = x.shape
         h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dt = x.dtype
         xn = self.norm(x, cfg.norm_eps)
+        is_cross = kv_source is not None
+        kv_in = self.norm(kv_source, cfg.norm_eps) if is_cross else xn
+        lk = kv_in.shape[1]
 
         q = (xn @ self.wq.to(dt)).reshape(b, s, h, dh).transpose(1, 2)
-        k = (xn @ self.wk.to(dt)).reshape(b, s, hk, dh).transpose(1, 2)
-        v = (xn @ self.wv.to(dt)).reshape(b, s, hk, dh).transpose(1, 2)
-        q = rope(q, positions[None, None, :], cfg.rope_theta)
-        k = rope(k, positions[None, None, :], cfg.rope_theta)
+        k = (kv_in @ self.wk.to(dt)).reshape(b, lk, hk, dh).transpose(1, 2)
+        v = (kv_in @ self.wv.to(dt)).reshape(b, lk, hk, dh).transpose(1, 2)
+        if not is_cross:
+            q = rope(q, positions[None, None, :], cfg.rope_theta)
+            k = rope(k, positions[None, None, :], cfg.rope_theta)
 
         new_cache = None
-        if mode == "decode":
+        if is_cross:
+            kv_pos = torch.arange(lk, dtype=torch.int32, device=x.device)
+            o = attend(q, k, v, q_pos=positions, kv_pos=kv_pos, causal=False,
+                       q_chunk=cfg.attn_q_chunk)
+        elif mode == "decode":
             # write into the ring/linear cache in place and attend over it
             slot = cache["cursor"]
             if cfg.kv_quant:
@@ -276,22 +303,128 @@ class Attention(nn.Module):
             new_cache = {**cache, "cursor": (slot + s) % length
                          if cfg.window else slot + s}
             o = attend(q, ck, cv, q_pos=positions, kv_pos=cache["pos"],
-                       window=cfg.window)
+                       causal=causal, window=cfg.window,
+                       q_chunk=cfg.attn_q_chunk)
         else:
             if _use_flash_kernel(cfg, x.device) and (mode != "train"
                                                      or cfg.use_flash):
                 # the flash kernel: native GQA, no KV repeat, no score tile
                 # in device memory; training keeps the plain path (the
                 # forward kernel has no backward)
-                o = flash_ops.flash_attention(q, k, v, window=cfg.window)
+                o = flash_ops.flash_attention(q, k, v, causal=causal,
+                                              window=cfg.window)
             else:
                 o = attend(q, k, v, q_pos=positions, kv_pos=positions,
-                           window=cfg.window)
+                           causal=causal, window=cfg.window,
+                           q_chunk=cfg.attn_q_chunk)
             if mode == "prefill":
                 new_cache = _build_prefill_cache(cfg, k, v, positions,
                                                  cache_len or k.shape[2])
 
         y = o.transpose(1, 2).reshape(b, s, h * dh) @ self.wo.to(dt)
+        return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+class MLA(nn.Module):
+    """Latent attention: KV compressed to ``kv_lora_rank`` plus a RoPE key
+    shared by the heads.  The cache holds only the latent ``c_kv`` and the
+    RoPE key.  Decode re-expands K/V from the latent each step;
+    ``cfg.mla_absorb`` scores in the latent space instead."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        r, vd = cfg.kv_lora_rank, cfg.v_head_dim
+        self.cfg = cfg
+
+        def dense(shape, fan_in=None):
+            return dense_param(shape, generator, dtype, device, fan_in)
+
+        self.wdq = dense((d, cfg.q_lora_rank))
+        self.wuq = dense((cfg.q_lora_rank, h * qd))
+        self.wdkv = dense((d, r + cfg.qk_rope_dim))
+        self.wukv = dense((r, h * (cfg.qk_nope_dim + vd)))
+        self.wo = dense((h * vd, d), fan_in=h * vd)
+        self.norm = RMSNorm(d, dtype, device)
+        self.q_norm = RMSNorm(cfg.q_lora_rank, dtype, device)
+        self.kv_norm = RMSNorm(r, dtype, device)
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                mode: str = "train", cache: Optional[Cache] = None,
+                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
+        cfg = self.cfg
+        b, s, d = x.shape
+        h, r = cfg.n_heads, cfg.kv_lora_rank
+        nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        dt = x.dtype
+        eps = cfg.norm_eps
+        xn = self.norm(x, eps)
+
+        cq = self.q_norm(xn @ self.wdq.to(dt), eps)
+        q = (cq @ self.wuq.to(dt)).reshape(b, s, h, nope + rdim)
+        q = q.transpose(1, 2)
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        q_rope = rope(q_rope, positions[None, None, :], cfg.rope_theta)
+
+        dkv = xn @ self.wdkv.to(dt)                     # (B,S,r + rdim)
+        c_kv = self.kv_norm(dkv[..., :r], eps)
+        k_rope = rope(dkv[..., None, r:].transpose(1, 2),
+                      positions[None, None, :], cfg.rope_theta)  # (B,1,S,rd)
+
+        new_cache = None
+        if mode == "decode":
+            slot = cache["cursor"]
+            _write_slots(cache["c_kv"], c_kv, slot, 1)
+            _write_slots(cache["k_rope"], k_rope, slot, 2)
+            _write_slots(cache["pos"], positions.to(torch.int32), slot, 0)
+            new_cache = {**cache, "cursor": slot + s}
+            c_kv_full, k_rope_full, kpos = (cache["c_kv"], cache["k_rope"],
+                                            cache["pos"])
+        else:
+            c_kv_full, k_rope_full, kpos = c_kv, k_rope, positions
+            if mode == "prefill":
+                clen = cache_len or s
+                cc = c_kv.new_zeros((b, clen, r))
+                cr = k_rope.new_zeros((b, 1, clen, rdim))
+                cpos = torch.full((clen,), -1, dtype=torch.int32,
+                                  device=x.device)
+                cc[:, :s] = c_kv
+                cr[:, :, :s] = k_rope
+                cpos[:s] = positions
+                new_cache = {"c_kv": cc, "k_rope": cr, "pos": cpos,
+                             "cursor": s}
+
+        scale = (nope + rdim) ** -0.5
+        if cfg.mla_absorb and mode == "decode":
+            # absorbed: score in the latent space, never re-expand K
+            wukv = self.wukv.to(dt).reshape(r, h, nope + vdim)
+            q_lat = torch.einsum("bhsn,rhn->bhsr", q_nope, wukv[..., :nope])
+            s_nope = torch.einsum("bhsr,blr->bhsl", q_lat, c_kv_full)
+            s_rope = torch.einsum("bhsr,blr->bhsl", q_rope,
+                                  k_rope_full[:, 0])
+            scores = (s_nope + s_rope).to(torch.float32) * scale
+            allow = _mask_for_chunk(positions, kpos, True, None)
+            scores = torch.where(allow, scores, -1e30)
+            p = torch.softmax(scores, dim=-1)
+            o_lat = torch.einsum("bhsl,blr->bhsr", p.to(dt), c_kv_full)
+            o = torch.einsum("bhsr,rhv->bhsv", o_lat, wukv[..., nope:])
+        else:
+            # expand K/V from the latent (the paper's path)
+            kv = (c_kv_full @ self.wukv.to(dt)).reshape(
+                b, -1, h, nope + vdim).transpose(1, 2)
+            k_nope, v = kv[..., :nope], kv[..., nope:]
+            k_r = k_rope_full.expand(b, h, *k_rope_full.shape[2:])
+            k = torch.cat([k_nope, k_r], dim=-1)
+            qc = torch.cat([q_nope, q_rope], dim=-1)
+            o = attend(qc, k, v, q_pos=positions, kv_pos=kpos, causal=True,
+                       sm_scale=scale, q_chunk=cfg.attn_q_chunk)
+
+        y = o.transpose(1, 2).reshape(b, s, h * vdim) @ self.wo.to(dt)
         return y, new_cache
 
 

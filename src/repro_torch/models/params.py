@@ -8,20 +8,34 @@ and returns a state dict for :class:`repro_torch.models.transformer.LM`:
 
 The reference's ``decoder`` leaves carry a leading ``n_groups`` axis (the
 stack is a ``vmap`` over groups of ``cfg.block_pattern``), so layer
-``g * group_size + i`` is ``decoder/layer_{i}/…[g]``.  Every leaf must be
+``g * group_size + i`` is ``decoder/layer_{i}/…[g]``; an encoder-decoder's
+encoder layer ``j`` is ``encoder/layer_0/…[j]``.  Every leaf must be
 consumed: a missing leaf raises ``KeyError``, a leaf left over
-``ValueError``.  ``load_state_dict`` casts each weight to the model's
-dtype, the rounding the reference applies at every use.
+``ValueError``.  ``load_state_dict`` casts each weight to its parameter's
+dtype: the model's compute dtype, the rounding the reference applies at
+every use, or float32 for the leaves the reference uses uncast.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .transformer import check_supported
+from .transformer import encoder_config, layer_has_ffn, layer_has_moe
+
+_NORM = "norm/scale"
+_GQA = ["wq", "wk", "wv", "wo", _NORM]
+_MIXER_LEAVES = {
+    "mla": ["wdq", "wuq", "wdkv", "wukv", "wo", _NORM, "q_norm/scale",
+            "kv_norm/scale"],
+    "mamba": [_NORM, "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+              "dt_bias", "a_log", "d_skip", "out_proj"],
+    "mlstm": [_NORM, "w_up", "wq", "wk", "wv", "w_gates", "b_gates",
+              "out_norm/scale", "w_down"],
+    "slstm": [_NORM, "w_x", "w_h", "b", "out_norm/scale", "w_down"],
+}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -33,17 +47,28 @@ def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, val
 
 
-def _layer_leaves(cfg: ModelConfig):
-    names = ["mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo",
-             "mixer/norm/scale"]
-    if cfg.d_ff > 0:
+def _layer_leaves(cfg: ModelConfig, kind: str, i: int,
+                  cross: bool) -> List[str]:
+    """The leaves of pattern entry ``i`` (of kind ``kind``)."""
+    mixer = _MIXER_LEAVES.get("mla" if (kind == "attn" and
+                                        cfg.attention == "mla") else kind,
+                              _GQA)
+    names = [f"mixer/{n}" for n in mixer]
+    if cross:
+        names += [f"cross/{n}" for n in _GQA]
+    if layer_has_moe(cfg, i, kind):
+        names += ["ffn/norm/scale", "ffn/router", "ffn/w_gate", "ffn/w_in",
+                  "ffn/w_out"]
+        if cfg.n_shared_experts:
+            names += ["ffn/shared/w_gate", "ffn/shared/w_in",
+                      "ffn/shared/w_out"]
+    elif layer_has_ffn(cfg, kind):
         names += ["ffn/w_gate", "ffn/w_in", "ffn/w_out", "ffn/norm/scale"]
     return names
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The reference's ``init_lm`` pytree → the port's state dict."""
-    check_supported(cfg)
     flat = dict(_flatten(tree))
 
     def take(path: str) -> np.ndarray:
@@ -55,16 +80,23 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
            "final_norm.scale": torch.tensor(take("final_norm/scale"))}
     if not cfg.tie_embeddings:
         out["lm_head"] = torch.tensor(take("lm_head"))
-    for i in range(cfg.group_size):
-        for name in _layer_leaves(cfg):
-            stacked = take(f"decoder/layer_{i}/{name}")
-            if stacked.shape[0] != cfg.n_groups:
-                raise ValueError(
-                    f"decoder/layer_{i}/{name} has {stacked.shape[0]} groups, "
-                    f"expected {cfg.n_groups}")
-            for g in range(cfg.n_groups):
-                key = f"layers.{g * cfg.group_size + i}.{name.replace('/', '.')}"
-                out[key] = torch.tensor(stacked[g])
+    stacks = [("decoder", "layers", cfg, cfg.is_encoder_decoder)]
+    if cfg.is_encoder_decoder:
+        stacks.append(("encoder", "encoder", encoder_config(cfg), False))
+        out["enc_norm.scale"] = torch.tensor(take("enc_norm/scale"))
+    for src, dst, scfg, cross in stacks:
+        for i, kind in enumerate(scfg.block_pattern):
+            for name in _layer_leaves(scfg, kind, i, cross):
+                path = f"{src}/layer_{i}/{name}"
+                stacked = take(path)
+                if stacked.shape[0] != scfg.n_groups:
+                    raise ValueError(
+                        f"{path} has {stacked.shape[0]} groups, expected "
+                        f"{scfg.n_groups}")
+                for g in range(scfg.n_groups):
+                    j = g * scfg.group_size + i
+                    out[f"{dst}.{j}.{name.replace('/', '.')}"] = \
+                        torch.tensor(stacked[g])
     if flat:
         raise ValueError(f"JAX parameters not consumed: {sorted(flat)}")
     return out

@@ -1,150 +1,260 @@
-"""Model composition: attention layers → a stack → a decoder-only LM.
+"""Model composition: layers → a stack → a full LM.
 
-Ports the ``attn``-only part of ``src/repro/models/transformer.py``: dense
-decoder-only LMs with GQA (and sliding-window) attention and SwiGLU FFNs,
-with or without tied embeddings.  The reference stacks one group of
+Ports ``src/repro/models/transformer.py`` for every architecture family of
+``ModelConfig``: decoder-only dense/GQA/SWA/MLA, MoE FFNs, hybrid
+Mamba+attention groups (Jamba), xLSTM stacks, encoder-decoder with stub
+audio frames (Whisper) and VLM token streams prefixed by stub patch
+embeddings (InternVL2).  The reference stacks one group of
 ``cfg.block_pattern`` per ``lax.scan`` step over parameters carrying a
 leading ``n_groups`` axis; here the layers are one ``nn.ModuleList`` in
 order (layer ``g * group_size + i`` is the reference's
-``decoder/layer_{i}[g]``) run by a Python loop, and a cache is a list of
-per-layer dicts in the same order.
+``decoder/layer_{i}[g]``, of kind ``block_pattern[i]``) run by a Python
+loop, and a cache is a list of per-layer dicts in the same order.
 
 ``LM(cfg, generator, device)`` is the reference's ``init_lm`` and
-``LM.forward`` its ``apply_lm``: ``tokens (B, S) → logits
-(B, S, V)`` in float32, plus the new cache in ``prefill`` and ``decode``.
-Mixers, FFNs and frontends of later slices raise ``NotImplementedError``
-naming their ROADMAP item.
+``LM.forward`` its ``apply_lm``: ``tokens (B, S) → (logits (B, S, V)``
+in float32, the new cache in ``prefill`` and ``decode``, the MoE metrics
+summed over the layers``)``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.context import DeviceLike, resolve_device
-from .layers import MLP, Attention, Cache, RMSNorm, compute_dtype, dense_param
+from . import ssm, xlstm
+from .layers import (MLA, MLP, Attention, Cache, RMSNorm, compute_dtype,
+                     dense_param)
+from .moe import METRICS, MoE
 
-Caches = List[Cache]
+Metrics = Dict[str, torch.Tensor]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference this slice does not port."""
-    later = []
-    if cfg.attention == "mla":
-        later.append("MLA attention: ROADMAP Queue 1 item 10b")
-    if cfg.is_moe:
-        later.append("MoE FFN: ROADMAP Queue 1 item 10c")
-    mixers = sorted(set(cfg.block_pattern) - {"attn"})
-    if mixers:
-        later.append(f"{'/'.join(mixers)} mixers: ROADMAP Queue 1 item 10d")
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        later.append("encoder-decoder and vision/audio frontends: ROADMAP "
-                     "Queue 1 item 10e")
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet — " + "; ".join(later))
+class Caches(list):
+    """Per-layer decode caches in layer order; ``enc_out`` carries an
+    encoder-decoder's encoder output from the prefill to every decode
+    step (the reference's ``cache["enc_out"]``)."""
+
+    enc_out: Optional[torch.Tensor] = None
+
+
+def layer_has_moe(cfg: ModelConfig, i: int, kind: str) -> bool:
+    """``i`` is the index in the block pattern, not the layer number."""
+    if not cfg.is_moe or cfg.d_ff == 0 or kind in ("mlstm", "slstm"):
+        return False
+    return i % cfg.moe_every == cfg.moe_every - 1
+
+
+def layer_has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.d_ff > 0 and kind not in ("mlstm", "slstm")
+
+
+_MIXERS = {"mamba": ssm.Mamba, "mlstm": xlstm.MLSTM, "slstm": xlstm.SLSTM}
 
 
 class Layer(nn.Module):
-    """One decoder layer: attention mixer, then the SwiGLU FFN."""
+    """One layer of kind ``block_pattern[i]``: its mixer, cross-attention
+    in an encoder-decoder, then a MoE or SwiGLU FFN where it has one."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 dtype: torch.dtype, device: torch.device):
+    def __init__(self, cfg: ModelConfig, kind: str, i: int, cross: bool,
+                 generator: torch.Generator, dtype: torch.dtype,
+                 device: torch.device):
         super().__init__()
-        self.mixer = Attention(cfg, generator, dtype, device)
-        self.ffn = MLP(cfg, generator, dtype, device) if cfg.d_ff > 0 else None
+        self.kind = kind
+        if kind == "attn":
+            mixer = MLA if cfg.attention == "mla" else Attention
+        elif kind in _MIXERS:
+            mixer = _MIXERS[kind]
+        else:
+            raise ValueError(kind)
+        self.mixer = mixer(cfg, generator, dtype, device)
+        self.cross = (Attention(cfg, generator, dtype, device) if cross
+                      else None)
+        if layer_has_moe(cfg, i, kind):
+            self.ffn = MoE(cfg, generator, dtype, device)
+        elif layer_has_ffn(cfg, kind):
+            self.ffn = MLP(cfg, generator, dtype, device)
+        else:
+            self.ffn = None
 
     def forward(self, x, *, mode: str, cache: Optional[Cache], positions,
-                cache_len: int = 0):
-        dx, new_cache = self.mixer(x, positions=positions, mode=mode,
-                                   cache=cache, cache_len=cache_len)
+                enc_out=None, causal: bool = True, cache_len: int = 0):
+        """→ (x, new cache, metrics or None)."""
+        if isinstance(self.mixer, Attention):
+            dx, new_cache = self.mixer(x, positions=positions, mode=mode,
+                                       cache=cache, causal=causal,
+                                       cache_len=cache_len)
+        elif isinstance(self.mixer, MLA):
+            dx, new_cache = self.mixer(x, positions=positions, mode=mode,
+                                       cache=cache, cache_len=cache_len)
+        else:
+            dx, new_cache = self.mixer(x, mode=mode, cache=cache)
         x = x + dx
-        if self.ffn is not None:
+        if self.cross is not None:
+            cdx, _ = self.cross(x, positions=positions, mode="train",
+                                kv_source=enc_out, causal=False)
+            x = x + cdx
+        metrics = None
+        if isinstance(self.ffn, MoE):
+            dff, metrics = self.ffn(x)
+            x = x + dff
+        elif self.ffn is not None:
             x = x + self.ffn(x)
-        return x, new_cache
+        return x, new_cache, metrics
+
+
+def build_stack(cfg: ModelConfig, cross: bool, generator: torch.Generator,
+                dtype: torch.dtype, device: torch.device) -> nn.ModuleList:
+    return nn.ModuleList(
+        Layer(cfg, kind, i, cross, generator, dtype, device)
+        for _ in range(cfg.n_groups)
+        for i, kind in enumerate(cfg.block_pattern))
+
+
+def apply_stack(layers: nn.ModuleList, x, *, mode: str, caches, positions,
+                enc_out=None, causal: bool = True, cache_len: int = 0):
+    """→ (x, per-layer new caches, metrics summed over the layers)."""
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+           for k in METRICS}
+    new_caches = []
+    for j, layer in enumerate(layers):
+        x, nc, m = layer(x, mode=mode,
+                         cache=caches[j] if caches is not None else None,
+                         positions=positions, enc_out=enc_out, causal=causal,
+                         cache_len=cache_len)
+        if m is not None:
+            aux = {k: aux[k] + m[k] for k in METRICS}
+        new_caches.append(nc)
+    return x, new_caches, aux
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(
+        cfg, n_layers=cfg.n_encoder_layers, block_pattern=("attn",),
+        n_experts=0, window=None)
 
 
 class LM(nn.Module):
-    """Decoder-only LM with the reference's parameters, in ``cfg.dtype``,
-    drawn from ``generator`` on ``device`` (``None``: the card)."""
+    """The reference's LM with its parameters, in ``cfg.dtype`` (float32
+    where the reference uses a leaf uncast), drawn from ``generator`` on
+    ``device`` (``None``: the card)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device: DeviceLike = None):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         dt = compute_dtype(cfg)
         self.cfg = cfg
         self.embed = dense_param((cfg.vocab_size, cfg.d_model), generator, dt,
                                  dev, fan_in=cfg.d_model)
         self.final_norm = RMSNorm(cfg.d_model, dt, dev)
-        self.layers = nn.ModuleList(Layer(cfg, generator, dt, dev)
-                                    for _ in range(cfg.n_layers))
+        self.layers = build_stack(cfg, cfg.is_encoder_decoder, generator, dt,
+                                  dev)
         self.lm_head = (None if cfg.tie_embeddings else
                         dense_param((cfg.d_model, cfg.vocab_size), generator,
                                     dt, dev))
+        if cfg.is_encoder_decoder:
+            self.encoder = build_stack(encoder_config(cfg), False, generator,
+                                       dt, dev)
+            self.enc_norm = RMSNorm(cfg.d_model, dt, dev)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def encode(self, frontend_embeds: torch.Tensor) -> torch.Tensor:
+        """Audio frames (B, F, d) → encoder output: a non-causal stack run
+        in ``train`` mode, as the reference's ``_encode``."""
+        f = frontend_embeds.shape[1]
+        pos = torch.arange(f, dtype=torch.int32, device=frontend_embeds.device)
+        h, _, _ = apply_stack(self.encoder, frontend_embeds, mode="train",
+                              caches=None, positions=pos, causal=False)
+        return self.enc_norm(h, self.cfg.norm_eps)
+
     def forward(self, tokens: torch.Tensor, *, mode: str = "train",
                 cache: Optional[Caches] = None,
-                positions: Optional[torch.Tensor] = None, cache_len: int = 0,
-                last_logit_only: bool = False,
-                ) -> Tuple[torch.Tensor, Optional[Caches]]:
-        """tokens (B, S) → (logits (B, S, V) float32, new cache).
+                positions: Optional[torch.Tensor] = None,
+                frontend_embeds: Optional[torch.Tensor] = None,
+                cache_len: int = 0, last_logit_only: bool = False,
+                ) -> Tuple[torch.Tensor, Optional[Caches], Metrics]:
+        """tokens (B, S) → (logits (B, S, V) float32, new cache, metrics).
 
-        ``positions`` default to ``arange(S)`` (train/prefill) and must be
-        given for decode.  ``last_logit_only``: serving prefill needs the
-        final position's logits only, so the head runs on one row.
+        ``frontend_embeds``: audio frames (encoder-decoder) or image
+        patches (VLM, prepended to the token stream).  ``positions``
+        default to ``arange(S)`` (train/prefill) and must be given for
+        decode.  ``last_logit_only``: serving prefill needs the final
+        position's logits only, so the head runs on one row.
         """
         cfg = self.cfg
         dtype = compute_dtype(cfg)
-        b, s = tokens.shape
         x = self.embed[tokens].to(dtype)
-        if positions is None:
-            positions = torch.arange(s, dtype=torch.int32, device=x.device)
 
-        new_caches = []
-        for i, layer in enumerate(self.layers):
-            x, nc = layer(x, mode=mode,
-                          cache=cache[i] if cache is not None else None,
-                          positions=positions, cache_len=cache_len)
-            new_caches.append(nc)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = (cache.enc_out if mode == "decode"
+                       else self.encode(frontend_embeds.to(dtype)))
+        elif cfg.frontend == "vision" and mode != "decode":
+            # VLM: image patch embeddings prefix the token stream
+            x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
+        if positions is None:
+            positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                     device=x.device)
+
+        x, layer_caches, aux = apply_stack(
+            self.layers, x, mode=mode, caches=cache, positions=positions,
+            enc_out=enc_out, cache_len=cache_len)
 
         if last_logit_only:
             x = x[:, -1:]
         x = self.final_norm(x, cfg.norm_eps)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = x @ head.to(dtype)
-        new_cache = new_caches if mode in ("prefill", "decode") else None
-        return logits.to(torch.float32), new_cache
+        new_cache = None
+        if mode in ("prefill", "decode"):
+            new_cache = Caches(layer_caches)
+            new_cache.enc_out = enc_out
+        return logits.to(torch.float32), new_cache, aux
 
 
 def init_group_cache(cfg: ModelConfig, batch: int, cache_len: int,
                      dtype: torch.dtype, device: torch.device) -> Caches:
     """Empty decode cache of one group (one dict per pattern entry)."""
-    check_supported(cfg)
-    out = []
-    for _ in cfg.block_pattern:
-        length = cfg.decode_cache_len(cache_len)
-        hk, dh = cfg.n_kv_heads, cfg.head_dim
-        kv_dt = torch.int8 if cfg.kv_quant else dtype
-        mix: Cache = {
-            "k": torch.zeros((batch, hk, length, dh), dtype=kv_dt,
-                             device=device),
-            "v": torch.zeros((batch, hk, length, dh), dtype=kv_dt,
-                             device=device),
-            "pos": torch.full((length,), -1, dtype=torch.int32,
-                              device=device),
-            "cursor": 0}
-        if cfg.kv_quant:
-            for name in ("k_s", "v_s"):
-                mix[name] = torch.full((batch, hk, length, 1), 1e-8,
-                                       dtype=torch.float32, device=device)
+    out = Caches()
+    for kind in cfg.block_pattern:
+        if kind == "attn" and cfg.attention == "mla":
+            mix: Cache = {
+                "c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, 1, cache_len, cfg.qk_rope_dim),
+                                      dtype=dtype, device=device),
+                "pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                                  device=device),
+                "cursor": 0}
+        elif kind == "attn":
+            length = cfg.decode_cache_len(cache_len)
+            hk, dh = cfg.n_kv_heads, cfg.head_dim
+            kv_dt = torch.int8 if cfg.kv_quant else dtype
+            mix = {"k": torch.zeros((batch, hk, length, dh), dtype=kv_dt,
+                                    device=device),
+                   "v": torch.zeros((batch, hk, length, dh), dtype=kv_dt,
+                                    device=device),
+                   "pos": torch.full((length,), -1, dtype=torch.int32,
+                                     device=device),
+                   "cursor": 0}
+            if cfg.kv_quant:
+                for name in ("k_s", "v_s"):
+                    mix[name] = torch.full((batch, hk, length, 1), 1e-8,
+                                           dtype=torch.float32, device=device)
+        elif kind == "mamba":
+            mix = ssm.init_mamba_cache(cfg, batch, dtype, device)
+        elif kind == "mlstm":
+            mix = xlstm.init_mlstm_cache(cfg, batch, device)
+        else:
+            mix = xlstm.init_slstm_cache(cfg, batch, device)
         out.append(mix)
     return out
 
@@ -153,5 +263,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype, device: DeviceLike = None) -> Caches:
     """Empty decode cache of every layer, in layer order."""
     dev = resolve_device(device)
-    return [c for _ in range(cfg.n_groups)
-            for c in init_group_cache(cfg, batch, cache_len, dtype, dev)]
+    return Caches(c for _ in range(cfg.n_groups)
+                  for c in init_group_cache(cfg, batch, cache_len, dtype,
+                                            dev))

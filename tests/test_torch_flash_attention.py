@@ -273,7 +273,7 @@ def test_reduced_phi3_prefill_with_wgmma_emulation(monkeypatch):
         model = LM(dataclasses.replace(cfg, use_flash=flash),
                    torch.Generator().manual_seed(3), "cpu")
         with torch.inference_mode():
-            out, _ = model(toks, mode="prefill", cache_len=200)
+            out, _, _ = model(toks, mode="prefill", cache_len=200)
         logits[flash] = out[:, -1].float()
     assert len(calls) == cfg.n_layers
     rel = float((logits[True] - logits[False]).abs().max()

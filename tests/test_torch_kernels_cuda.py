@@ -533,13 +533,13 @@ def test_model_prefill_and_decode_flash_vs_plain(dev, window):
         before = fak.LAUNCHES.n
         with torch.inference_mode(), _ran(torch.float32,
                                           cfg.n_layers if flash else 0):
-            logits, cache = model(toks[:, :40], mode="prefill",
-                                  cache_len=32 if window else 48)
+            logits, cache, _ = model(toks[:, :40], mode="prefill",
+                                     cache_len=32 if window else 48)
         assert fak.LAUNCHES.n - before == (cfg.n_layers if flash else 0)
         with torch.inference_mode():
             steps = [logits]
             for pos in range(40, 43):
-                logits, cache = model(
+                logits, cache, _ = model(
                     toks[:, pos:pos + 1], mode="decode", cache=cache,
                     positions=torch.tensor([pos], dtype=torch.int32,
                                            device=dev))

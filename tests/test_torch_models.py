@@ -8,7 +8,9 @@ float32 every logit and cache entry agrees to 1e-5 (XLA and PyTorch take
 exp, sin and cos and sum in other orders, nothing else differs); in
 bfloat16, where XLA may keep float32 inside fusions that PyTorch rounds
 per op, last-position logits agree to the JAX package's own model
-tolerance, 2e-2 of the largest logit (``tests/test_models.py``).
+tolerance, 2e-2 of the largest logit (``tests/test_models.py``).  Every
+other family builds and takes every JAX leaf here; their parity tests
+are ``tests/test_torch_{mla,moe,ssm,encdec}.py``.
 """
 import dataclasses
 import functools
@@ -47,9 +49,13 @@ def _cfgs(arch: str, **over):
 
 
 @functools.lru_cache(maxsize=None)
+def _init_params(jc):
+    return JT.init_lm(jax.random.PRNGKey(7), jc)
+
+
 def _jax_params(arch: str):
     jc, _ = _cfgs(arch)
-    return JT.init_lm(jax.random.PRNGKey(7), jc)
+    return _init_params(jc)
 
 
 def _models(arch: str, **over):
@@ -125,7 +131,7 @@ def test_prefill_and_decode_vs_jax(arch, prompt, cache_len, over):
 
     jl, jcache = jprefill(params, jnp.asarray(toks[:, :prompt]))
     with torch.inference_mode():
-        tl, tcache = model(torch.from_numpy(toks[:, :prompt]),
+        tl, tcache, _ = model(torch.from_numpy(toks[:, :prompt]),
                            mode="prefill", cache_len=cache_len)
     _close(tl, jl)
     _check_caches(tcache, jcache, cfg, int8=quant)
@@ -138,7 +144,7 @@ def test_prefill_and_decode_vs_jax(arch, prompt, cache_len, over):
         jl, jcache = jdecode(params, jcache, jnp.asarray(tok),
                              jnp.asarray([pos], jnp.int32))
         with torch.inference_mode():
-            tl, tcache = model(torch.from_numpy(tok), mode="decode",
+            tl, tcache, _ = model(torch.from_numpy(tok), mode="decode",
                                cache=tcache,
                                positions=torch.tensor([pos],
                                                       dtype=torch.int32))
@@ -157,8 +163,8 @@ def test_flash_prefill_vs_jax_pallas(arch):
     jl, jcache = jax.jit(lambda p, t: JT.apply_lm(
         p, jc, t, mode="prefill", cache_len=48)[:2])(params, jnp.asarray(toks))
     with torch.inference_mode():
-        tl, tcache = model(torch.from_numpy(toks), mode="prefill",
-                           cache_len=48)
+        tl, tcache, _ = model(torch.from_numpy(toks), mode="prefill",
+                              cache_len=48)
     _close(tl, jl)
     _check_caches(tcache, jcache, model.cfg)
 
@@ -198,11 +204,11 @@ def test_bf16_logits_within_model_tolerance(arch):
     jd, _ = JT.apply_lm(params, jc, jnp.asarray(toks[:, -1:]), mode="decode",
                         cache=jcache, positions=jnp.asarray([23], jnp.int32))[:2]
     with torch.inference_mode():
-        tl, tcache = model(torch.from_numpy(toks[:, :-1]), mode="prefill",
-                           cache_len=32)
-        td, _ = model(torch.from_numpy(toks[:, -1:]), mode="decode",
-                      cache=tcache, positions=torch.tensor([23],
-                                                           dtype=torch.int32))
+        tl, tcache, _ = model(torch.from_numpy(toks[:, :-1]),
+                              mode="prefill", cache_len=32)
+        td, _, _ = model(torch.from_numpy(toks[:, -1:]), mode="decode",
+                         cache=tcache, positions=torch.tensor(
+                             [23], dtype=torch.int32))
     for got, exp in ((tl[:, -1], np.asarray(jl)[:, -1]), (td, jd)):
         exp = np.asarray(exp, np.float32)
         rel = np.abs(got.numpy() - exp).max() / (np.abs(exp).max() + 1e-9)
@@ -219,24 +225,39 @@ def test_sampling_at_temperature_is_seeded():
     assert a.shape == (3, 6) and a.min() >= 0 and a.max() < 128
 
 
-@pytest.mark.parametrize("change", ["drop", "extra", "groups"])
-def test_params_from_jax_consumes_every_leaf(change):
-    jc, tc = _cfgs("phi3")
-    tree = jax.tree.map(np.asarray, _jax_params("phi3"))
-    tree = {**tree, "decoder": {"layer_0": {
-        **tree["decoder"]["layer_0"],
-        "mixer": dict(tree["decoder"]["layer_0"]["mixer"])}}}
-    mixer = tree["decoder"]["layer_0"]["mixer"]
+# the leaf of layer 0 each case drops, extends beside or cuts: a dense
+# attention weight, a MoE router (float32), a Mamba decay (float32)
+LEAF_CASES = [pytest.param(name, leaf, change, id=f"{tag}{change}")
+              for name, leaf, tag in (
+                  ("phi3-mini-3.8b", "mixer/wq", ""),
+                  ("qwen2-moe-a2.7b", "ffn/router", "moe-"),
+                  ("jamba-v0.1-52b", "mixer/a_log", "hybrid-"))
+              for change in ("drop", "extra", "groups")]
+
+
+@pytest.mark.parametrize("name,leaf,change", LEAF_CASES)
+def test_params_from_jax_consumes_every_leaf(name, leaf, change):
+    over = {"dtype": "float32"}
+    tc = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config(
+        name)), **over)
+    jc = dataclasses.replace(jconfigs.reduced_config(jconfigs.get_config(
+        name)), **over)
+    tree = jax.tree.map(np.asarray, _init_params(jc))
+    part, key = leaf.split("/")
+    layer = {**tree["decoder"]["layer_0"],
+             part: dict(tree["decoder"]["layer_0"][part])}
+    tree = {**tree, "decoder": {**tree["decoder"], "layer_0": layer}}
+    sub = layer[part]
     if change == "drop":
-        del mixer["wk"]
-        with pytest.raises(KeyError, match="mixer/wk"):
+        del sub[key]
+        with pytest.raises(KeyError, match=leaf):
             params_from_jax(tree, tc)
     elif change == "extra":
-        mixer["bias"] = np.zeros(3, np.float32)
-        with pytest.raises(ValueError, match="mixer/bias"):
+        sub["bias"] = np.zeros(3, np.float32)
+        with pytest.raises(ValueError, match=f"{part}/bias"):
             params_from_jax(tree, tc)
     else:
-        mixer["wq"] = mixer["wq"][:1]
+        sub[key] = sub[key][:1]
         with pytest.raises(ValueError, match="groups"):
             params_from_jax(tree, tc)
 
@@ -254,10 +275,20 @@ def test_configs_mirror_jax(arch):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "minicpm3-4b",
                                   "jamba-v0.1-52b", "xlstm-125m",
                                   "whisper-medium", "internvl2-76b"])
-def test_later_slices_raise(arch):
+def test_later_families_build_and_load_every_leaf(arch):
+    """Every family builds on the CPU and takes every JAX leaf (a strict
+    ``load_state_dict``: no key missing, none left over, each shape and
+    dtype-cast as the model holds it)."""
     cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        LM(cfg, torch.Generator().manual_seed(0), "cpu")
+    jc = jconfigs.reduced_config(jconfigs.get_config(arch))
+    model = LM(cfg, torch.Generator().manual_seed(0), "cpu")
+    tree = jax.tree.map(np.asarray, _init_params(jc))
+    state = params_from_jax(tree, cfg)
+    assert len(state) == len(model.state_dict())
+    model.load_state_dict(state)
+    for key, val in model.state_dict().items():
+        np.testing.assert_array_equal(
+            val.float().numpy(), state[key].to(val.dtype).float().numpy())
 
 
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch):

@@ -20,6 +20,18 @@ import numpy as np
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 
+try:
+    import torch
+except ImportError:  # the port's test modules skip without torch
+    torch = None
+else:
+    # one intra-op thread a test process: the suite runs several workers
+    # on the machine's cores beside multi-threaded JAX subprocesses, and
+    # PyTorch's default pool (one thread a core, per process) oversubscribes
+    # them — a 64K-element product took 11.8 ms on 8 threads of a loaded
+    # 8-core machine and 0.07 ms on one
+    torch.set_num_threads(1)
+
 _PRELUDE = """
 import sys
 import numpy as np
