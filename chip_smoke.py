@@ -210,7 +210,38 @@ Phases (every failed check raises; nothing is caught):
    the MoE dropped fraction is printed for a prefill and a decode step.
    Prefill ms, decode ms a token, tokens/s and peak GiB: medians of 3
    runs, one run for the configs cut in depth;
-25. summary — the script's seconds so far, the ``kernels`` JSON line, the
+25. training, smollm-360m at its full published width and depth (32
+   layers, d_model 960, GQA 15/5, vocab 49152, tied embeddings): float32
+   masters drawn on the card from ``--seed``, bf16 compute, each layer
+   rematerialized, batch 8 x 1024 random tokens.  The step launches no
+   kernel (training runs the plain ``attend``: the flash kernel has no
+   backward, as in the reference); its loss and grad norm are finite.
+   Its gradients are held leaf by leaf against a float32-compute step's
+   from the same masters and batch, with its loss and grad norm
+   (``BF16_VS_F32``: about 3x the readings).  Prints step ms (host clock ending in a synchronize,
+   median of 3 after a warm-up), tokens/s, peak GiB, the same with
+   ``micro_batches=4``, the peak with remat on and off at batch 2 x 1024
+   (on must be lower) and the model-FLOPs share (8 N a token, over the
+   bf16 peak); ``use_flash=True`` in train mode must raise and launch
+   nothing;
+26. the pipeline → train → serve workflow (the reference's
+   ``tests/test_system.py`` case) as three tasks of a journaled
+   ``WorkflowEngine``: ``make_training_data`` on 4 virtual shards over
+   ``CorpusConfig(n_docs=2^15, mean_doc_len=512, vocab_size=49152)``
+   (~2^24 token rows: the probe and hash_partition launch); the curated
+   stream bit for bit the plain path's (the same pipeline on the CPU) and
+   the numpy oracle's but for the rows the reference's join drops on 4
+   shards (printed); ``train_loop`` for 8 steps (checkpoint at 8 in a
+   temporary directory, removed at the end), then a second loop to step
+   10 that resumes from step 8; the loss falls; an ``Engine`` over a bf16
+   model loaded from the trained masters generates 16 greedy tokens for
+   8 prompts of 64, every flash launch held against ``attend`` on its
+   inputs (2e-2) and the prefill's last logits against a train-mode
+   forward of the same model (2e-2 of the largest).  Prints the
+   preprocess seconds, exchanges, launches, losses, checkpoint GB/s and
+   restore seconds, and the seconds of phases 25-26
+   (``train_seconds``);
+27. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -219,9 +250,9 @@ run; kernel launch counts are those of the checked runs.  ``--profile``
 adds one ``torch.profiler`` run of each of phases 3-10, of phase 12's
 re-entry path, of phase 14's 4-shard planned chain, of phase 15's 4-shard
 ``groupby_k`` and ``join_groupby`` pipelines, of phase 16's traced
-4-shard main path and of one generate of qwen2-moe and of jamba (device
-busy share, top kernels; a table of each in the output directory that
-``profile_run`` writes to).
+4-shard main path, of one generate of qwen2-moe and of jamba and of one
+phase-25 train step (device busy share, top kernels; a table of each in
+the output directory that ``profile_run`` writes to).
 Float32 matrix products run in full float32 (TF32 off, PyTorch's
 default, set here).
 """
@@ -2564,6 +2595,347 @@ def sass_hgmma(lib) -> dict:
     return counts
 
 
+TRAIN_ARCH = "smollm-360m"
+TRAIN = {"batch": 8, "seq": 1024, "remat_batch": 2}
+WORKFLOW = {"n_docs": 1 << 15, "mean_doc_len": 512, "steps": 8,
+            "resume_to": 10, "prompts": 8, "prompt": 64, "gen": 16}
+#: phase 25: the bf16 step against a float32-compute step from the same
+#: masters and batch (``grad_agreement``; the loss relative; the step's
+#: grad norm against its own gradients' norm), about 3x the readings at
+#: seed 0 on an H100 (4.41e-2, 5.22e-2, 3.41e-4, 8.43e-7, 0)
+BF16_VS_F32 = {"leaf_rel_l2": 0.13, "leaf_of_max": 0.16, "norm_rel": 1e-3,
+               "loss_rel": 3e-6, "step_vs_grads_norm_rel": 1e-6}
+
+
+def train_batch(cfg, seed: int, b: int, s: int, dev):
+    """Random next-token batch: ``(b, s)`` tokens and their successors."""
+    rng = np.random.default_rng(seed + 5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1),
+                                         dtype=np.int32)).to(dev)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def grad_agreement(got, ref) -> dict:
+    """How far gradients ``got`` are from ``ref`` (dicts of leaves):
+    the worst leaf's ``|got - ref|`` over ``|ref|`` (2-norms,
+    ``leaf_rel_l2``) and its largest element error over the leaf's
+    largest magnitude (``leaf_of_max``), and the global norms' gap."""
+    from repro_torch.train.optimizer import global_norm
+
+    l2, of_max = {}, {}
+    for k, r in ref.items():
+        d = (got[k] - r).float()
+        l2[k] = float(d.norm() / r.norm().clamp_min(1e-30))
+        of_max[k] = float(d.abs().max() / r.abs().max().clamp_min(1e-30))
+    n_got = float(global_norm(got.values()))
+    n_ref = float(global_norm(ref.values()))
+    worst = max(l2, key=l2.get)
+    return {"leaf_rel_l2": l2[worst], "leaf_rel_l2_at": worst,
+            "leaf_of_max": max(of_max.values()),
+            "leaf_of_max_at": max(of_max, key=of_max.get),
+            "norm_rel": abs(n_got - n_ref) / n_ref}
+
+
+def train_phase(dev, seed: int, launches, profile: bool) -> dict:
+    """Phase 25: train steps of smollm-360m at full width on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptimizerConfig, global_norm
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat and cfg.param_dtype == "float32"
+          and cfg.dtype == "bfloat16", f"{TRAIN_ARCH}: remat, float32 "
+          f"masters, bf16 compute")
+    tcfg = TS.TrainConfig(optimizer=OptimizerConfig(warmup_steps=2,
+                                                    total_steps=100))
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    state = TS.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    check(all(p.dtype == torch.float32 and p.requires_grad
+              for p in state.params.values()), "float32 trainable masters")
+    batch = train_batch(cfg, seed, b, s, dev)
+
+    # the step's gradients (bf16 compute) against a float32-compute
+    # step's, from the same masters and batch: the bf16 casts under
+    # autograd, leaf by leaf
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    g32, m32 = TS.compute_grads(TS.bind(TS.skeleton(cfg32), state.params),
+                                cfg32, tcfg, batch, state.params)
+    g16, m16 = TS.compute_grads(TS.bind(TS.skeleton(cfg), state.params),
+                                cfg, tcfg, batch, state.params)
+    vs32 = grad_agreement(g16, g32)
+    norm16 = float(global_norm(g16.values()))
+    del g16, g32
+    loss32 = float(m32["loss"])
+
+    step = TS.make_train_step(cfg, tcfg)
+    launches.reset()
+    state, m = step(state, batch)                     # warm-up, checked
+    torch.cuda.synchronize()
+    counts, _ = launches.read()
+    check(sum(counts.values()) == 0, f"the train step launches no kernel "
+          f"(attention is the plain attend): {counts}")
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    check(np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0,
+          f"finite loss {loss} and grad norm {gnorm}")
+    vs32.update(loss_rel=abs(loss - loss32) / abs(loss32),
+                step_vs_grads_norm_rel=abs(gnorm - norm16) / norm16)
+    print(f"  bf16 step vs float32 compute: {vs32}", flush=True)
+    for key, limit in BF16_VS_F32.items():
+        check(vs32[key] <= limit, f"bf16 step vs float32 compute: {key} "
+              f"{vs32[key]} within {limit}")
+
+    def one(fn, st, bt):
+        """A no-argument call of one synchronized step that carries the
+        state it returns to the next call."""
+        def run():
+            nonlocal st
+            st, mm = fn(st, bt)
+            torch.cuda.synchronize()
+            return mm
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = timed_runs(one(step, state, batch))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = statistics.median(runs)
+    step4 = TS.make_train_step(cfg, dataclasses.replace(tcfg,
+                                                        micro_batches=4))
+    one(step4, state, batch)()                        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs4 = timed_runs(one(step4, state, batch))
+    peak4 = torch.cuda.max_memory_allocated() / 2**30
+
+    # remat on and off at batch 2 (off at batch 8 would keep every
+    # layer's activations)
+    small = train_batch(cfg, seed + 1, TRAIN["remat_batch"], s, dev)
+    remat_peak = {}
+    for on in (True, False):
+        c = dataclasses.replace(cfg, remat=on)
+        st_fn = TS.make_train_step(c, tcfg)
+        one(st_fn, state, small)()                    # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        one(st_fn, state, small)()
+        remat_peak["on" if on else "off"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+    check(remat_peak["on"] < remat_peak["off"],
+          f"remat lowers the peak: {remat_peak}")
+
+    # the flash kernel is forward only: training with it raises
+    flash_cfg = dataclasses.replace(cfg, use_flash=True)
+    launches.reset()
+    try:
+        TS.make_train_step(flash_cfg, tcfg)(state, small)
+    except RuntimeError as e:
+        check("forward only" in str(e), f"flash under grad: {e}")
+    else:
+        check(False, "use_flash=True in train mode must raise")
+    check(launches.read()[0]["flash_attention"] == 0,
+          "the refused flash call launched nothing")
+    if profile:
+        profile_run("train_step", one(step, state, batch))
+
+    n_params = cfg.param_count()
+    tokens = b * s
+    flops = 8 * n_params * tokens      # 6N a token, plus 2N to recompute
+    return {"arch": TRAIN_ARCH, "batch": b, "seq": s, "params": n_params,
+            "loss_first": loss, "loss_f32_compute": loss32,
+            "bf16_vs_f32": vs32,
+            "grad_norm": gnorm, "step_ms": step_s * 1e3,
+            "runs_ms": [r * 1e3 for r in runs],
+            "tokens_per_s": tokens / step_s, "peak_gib": peak,
+            "micro4_step_ms": statistics.median(runs4) * 1e3,
+            "micro4_runs_ms": [r * 1e3 for r in runs4],
+            "micro4_peak_gib": peak4,
+            "remat_peak_gib_batch2": remat_peak,
+            "model_flops": flops,
+            "model_flops_share_bf16": flops / step_s / BF16_OPS_PER_S}
+
+
+class CkptSpy:
+    """Times ``CheckpointManager``'s file writes (the background thread's
+    ``_write``) and restores, and sums their bytes."""
+
+    def __init__(self):
+        from repro_torch.checkpoint.manager import CheckpointManager
+        self.cls = CheckpointManager
+        self.real_write, self.real_restore = (CheckpointManager._write,
+                                              CheckpointManager.restore)
+        self.writes, self.restores = [], []
+
+    def __enter__(self):
+        spy = self
+
+        def write(mgr, step, names, host):
+            t0 = time.perf_counter()
+            spy.real_write(mgr, step, names, host)
+            spy.writes.append((sum(t.numel() * t.element_size()
+                                   for t in host),
+                               time.perf_counter() - t0))
+
+        def restore(mgr, template, step=None, device=None):
+            t0 = time.perf_counter()
+            out = spy.real_restore(mgr, template, step, device)
+            torch.cuda.synchronize()
+            spy.restores.append(time.perf_counter() - t0)
+            return out
+
+        self.cls._write, self.cls.restore = write, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._write, self.cls.restore = self.real_write, self.real_restore
+
+
+def workflow_phase(dev, seed: int, launches) -> dict:
+    """Phase 26: the table pipeline prepares smollm-360m's batches on 4
+    virtual shards, ``train_loop`` trains and resumes, and the engine
+    serves the trained weights, as three journaled workflow tasks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HPTMTContext
+    from repro_torch.data import pipeline as TP
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import LoopConfig, train_loop
+    from repro_torch.workflow.engine import Task, WorkflowEngine
+
+    cfg = get_config(TRAIN_ARCH)
+    ctx4 = HPTMTContext(n_shards=4, device="cuda")
+    ccfg = TP.CorpusConfig(n_docs=WORKFLOW["n_docs"],
+                           mean_doc_len=WORKFLOW["mean_doc_len"],
+                           vocab_size=cfg.vocab_size, seed=seed)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        learning_rate=1e-3, warmup_steps=2,
+        total_steps=WORKFLOW["resume_to"]))
+    out, logs = {}, []
+
+    def prepare():
+        real = TP.preprocess
+
+        def timed(corpus, c, ctx):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream = real(corpus, c, ctx)
+            out["preprocess_s"] = time.perf_counter() - t0
+            out["stream"] = stream
+            return stream
+
+        launches.reset()
+        TP.preprocess = timed
+        try:
+            data = TP.make_training_data(cfg, ctx4, TRAIN["batch"],
+                                         TRAIN["seq"], ccfg)
+        finally:
+            TP.preprocess = real
+        out["prepare_launches"], out["exchanges"] = launches.read()
+        return data
+
+    def train(prepare):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        loop = LoopConfig(total_steps=WORKFLOW["steps"], log_every=1,
+                          checkpoint_every=WORKFLOW["steps"],
+                          checkpoint_dir=ckdir)
+        train_loop(cfg, tcfg, loop, prepare, gen, log_fn=logs.append,
+                   device=dev)
+        out["history"] = list(train_loop.last_history)
+        # a restart: the loop resumes from the last snapshot
+        loop = dataclasses.replace(loop, total_steps=WORKFLOW["resume_to"])
+        state = train_loop(cfg, tcfg, loop, prepare, gen,
+                           log_fn=logs.append, device=dev)
+        out["resumed_history"] = list(train_loop.last_history)
+        out["train_s"] = time.perf_counter() - t0
+        return state
+
+    def serve(train):
+        model = LM.from_state_dict(cfg, train.params, dev)
+        check(model.embed.dtype == torch.bfloat16, "served in bf16")
+        b, s, n = WORKFLOW["prompts"], WORKFLOW["prompt"], WORKFLOW["gen"]
+        prompts = np.random.default_rng(seed + 6).integers(
+            1, cfg.vocab_size, (b, s), dtype=np.int32)
+        engine = Engine(model, ServeConfig(max_len=s + n + 8))
+        launches.reset()
+        with FlashTap() as tap:
+            tokens = engine.generate(prompts, n)
+        counts, _ = launches.read()
+        check(counts["flash_attention"] == cfg.n_layers == tap.layers
+              and not tap.bad, f"serve: {counts['flash_attention']} flash "
+              f"launches, {tap.layers} tapped, outside 2e-2: {tap.bad}")
+        out["flash_vs_plain_attention_max_abs_err"] = tap.max_abs_err
+        last, _ = engine.prefill(prompts)
+        with torch.inference_mode():
+            logits, _, _ = model(torch.from_numpy(prompts).to(dev),
+                                 mode="train")
+        out["prefill_vs_train_forward_logits"] = rel_err(
+            last.float(), logits[:, -1].float())
+        check(out["prefill_vs_train_forward_logits"] <= 2e-2,
+              f"serving prefill vs a train-mode forward: "
+              f"{out['prefill_vs_train_forward_logits']}")
+        out["serve_launches"] = counts
+        return tokens
+
+    with tempfile.TemporaryDirectory(prefix="hptmt_train_") as tmp, \
+            CkptSpy() as spy:
+        ckdir = os.path.join(tmp, "ckpt")
+        wf = WorkflowEngine(os.path.join(tmp, "journal.json"))
+        wf.add(Task("prepare", prepare))
+        wf.add(Task("train", train, deps=("prepare",)))
+        wf.add(Task("serve", serve, deps=("train",)))
+        res = wf.run()
+
+    # the curated stream: bit for bit the plain path's (the same 4-shard
+    # pipeline on the CPU, held to the JAX package's in the tests), and
+    # the numpy oracle's (the good documents' tokens in (doc, position)
+    # order) but for the rows the reference's join drops on 4 shards —
+    # its token table is full a shard and the doc-id shuffle sends a
+    # heavy shard more (ROADMAP Queue 3)
+    stream = out.pop("stream")
+    cpu4 = HPTMTContext(n_shards=4, device="cpu")
+    t0 = time.perf_counter()
+    plain = TP.preprocess(TP.synthetic_corpus(ccfg, cpu4), ccfg, cpu4)
+    out["plain_preprocess_s"] = time.perf_counter() - t0
+    check(np.array_equal(stream, plain),
+          "the card's curated stream equals the plain path's")
+    arrays = TP.synthetic_corpus_arrays(ccfg)
+    good = arrays["docs"]["quality"] >= ccfg.quality_threshold
+    toks = arrays["tokens"]
+    n_good = int(good[toks["doc_id"]].sum())
+    out["rows_dropped_by_join"] = n_good - int(stream.shape[0])
+    out["good_token_rows"] = n_good
+    check(out["rows_dropped_by_join"] >= 0, "no row made up")
+    pl = out["prepare_launches"]
+    check(pl["probe"] > 0 and pl["hash_partition"] > 0,
+          f"prepare launches the probe and hash_partition: {pl}")
+    hist, hist2 = out["history"], out["resumed_history"]
+    check(len(hist) == WORKFLOW["steps"] and len(hist2) ==
+          WORKFLOW["resume_to"] - WORKFLOW["steps"], "steps run")
+    check(all(np.isfinite(hist + hist2)), "finite losses")
+    check(hist[-1] < hist[0], f"the loss fell: {hist[0]} → {hist[-1]}")
+    check(any(f"resumed from checkpoint step {WORKFLOW['steps']}" in line
+              for line in logs), "the second loop resumed from step 8")
+    tokens = res["serve"]
+    check(tokens.shape == (WORKFLOW["prompts"], WORKFLOW["gen"])
+          and tokens.dtype == np.int32
+          and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          "served tokens in range")
+    check(not os.path.exists(ckdir), "the checkpoint directory is gone")
+    wbytes = sum(bb for bb, _ in spy.writes)
+    return {**out, "stream_tokens": int(stream.shape[0]),
+            "token_rows": int(toks["token"].shape[0]),
+            "checkpoint_saves": len(spy.writes),
+            "checkpoint_gb": [bb / 1e9 for bb, _ in spy.writes],
+            "checkpoint_write_gb_per_s": [bb / 1e9 / t
+                                          for bb, t in spy.writes],
+            "checkpoint_write_s": sum(t for _, t in spy.writes),
+            "restore_s": spy.restores,
+            "restore_gb_per_s": [spy.writes[0][0] / 1e9 / t
+                                 for t in spy.restores],
+            "log_tail": logs[-3:], "bytes_written": wbytes}
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2576,8 +2948,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one run of each of phases 3-10 and "
-                    "of the re-entry path")
+                    help="also profile one run of each of phases 3-10, "
+                    "of the re-entry path and of a train step")
     ap.add_argument("--crash-child", nargs=2, metavar=("DATASET", "STAGES"),
                     help="run as phase 17's child: the resume chain over "
                     "DATASET with stage checkpoints in STAGES, killed by its "
@@ -2813,7 +3185,18 @@ def main() -> int:
         family_s[arch] = time.perf_counter() - t0
     emit("families_seconds", total=sum(family_s.values()), **family_s)
 
-    # 25. summary
+    # 25./26. training: train steps at full width, then the pipeline →
+    # train → serve workflow
+    train_s = {}
+    t0 = time.perf_counter()
+    emit("train_step", **train_phase(dev, args.seed, launches, args.profile))
+    train_s["train_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emit("train_workflow", **workflow_phase(dev, args.seed, launches))
+    train_s["workflow"] = time.perf_counter() - t0
+    emit("train_seconds", total=sum(train_s.values()), **train_s)
+
+    # 27. summary
     kernels = []
     for r in krows:
         name = r["name"]

@@ -10,7 +10,10 @@ The device and the dtype pick what runs, and nothing else does:
 
 Nothing falls back from one to another: a build or launch failure raises.
 A head dim the kernels do not take raises on both devices, so the CPU
-never accepts a shape the card would refuse.
+never accepts a shape the card would refuse.  The kernels are forward
+only, as the reference's is (it has no vjp): with autograd recording and
+``q``, ``k`` or ``v`` requiring grad the op raises on both devices,
+instead of returning an output the graph does not reach.
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D) → (B, Hq, Sq, D)."""
     _kernel.check_head_dim(q.shape[-1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward only (no backward kernel): train "
+            "with use_flash=False, the plain attend path")
     fn = (_kernel.flash_attention_cuda if native.on_cuda(q)
           else _ref.flash_attention)
     return fn(q, k, v, causal=causal, window=window, kv_len=kv_len,

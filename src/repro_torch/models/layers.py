@@ -3,20 +3,24 @@
 
 Ports ``src/repro/models/layers.py``.  Each block is an ``nn.Module``
 holding the reference's parameters under the reference's names and layouts
-(``x @ w`` with ``w`` stored ``(in, out)``), stored in the model's compute
-dtype: the reference keeps float32 parameters and casts them at every use
-(``params["wq"].astype(dt)``), which rounds the same way.  Leaves the
-reference uses in float32 without a cast are stored in float32
-(:func:`f32_param`).
+(``x @ w`` with ``w`` stored ``(in, out)``), stored in the dtype the model
+is built with: float32 masters for training (the reference's
+``param_dtype``), or the compute dtype for serving.  Every use casts to
+the activations' dtype (``params["wq"].astype(dt)`` in the reference), so
+both storages round the same way.  Leaves the reference uses in float32
+without a cast are stored in float32 (:func:`f32_param`).  Parameters are
+made with ``requires_grad=False``; a trainer turns it on for its masters.
 
 Attention dispatch: in prefill the flash kernel
 (``repro_torch.kernels.flash_attention``) runs GQA self-attention by
 default on the card — the CUDA kernel for CUDA tensors, its plain version
 for CPU tensors when a config asks for it (``use_flash=True``); decode,
 training, cross-attention and MLA use the plain masked-softmax
-:func:`attend`.  Caches are updated in place: the decode step writes the
-new K/V (or MLA latent) into the tensors the prefill built instead of
-copying the cache, and returns the same tensors.
+:func:`attend`, whose query chunks are rematerialized under autograd as
+the reference's ``lax.map(jax.checkpoint(...))`` is.  Caches are
+updated in place: the decode step writes the new K/V (or MLA latent)
+into the tensors the prefill built instead of copying the cache, and
+returns the same tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import ops as flash_ops
@@ -127,7 +132,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     repeated up to Hq, as in the reference.  The chunks bound the float32
     score tile to ``(B, Hq, q_chunk, L)``; each row's arithmetic is the
     same whatever the chunk (the reference pads the last chunk, which
-    changes no real row).
+    changes no real row).  Under autograd each chunk of a longer query is
+    rematerialized in the backward pass, so one chunk's score tile is
+    alive at a time.
     """
     hq, hkv = q.shape[1], k.shape[1]
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
@@ -143,7 +150,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               kf) * scale
         allow = _mask_for_chunk(qp, kv_pos, causal, window)
         scores = torch.where(allow, scores, -1e30)
-        m = torch.amax(scores, dim=-1, keepdim=True)
+        # the row max carries no gradient (the reference's stop_gradient)
+        m = torch.amax(scores, dim=-1, keepdim=True).detach()
         p = torch.exp(scores - m)
         p = torch.where(allow, p, 0.0)
         denom = torch.sum(p, dim=-1, keepdim=True)
@@ -153,7 +161,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = q.shape[2]
     if s <= q_chunk:
         return one_chunk(q, q_pos)
-    return torch.cat([one_chunk(q[:, :, i:i + q_chunk], q_pos[i:i + q_chunk])
+    if torch.is_grad_enabled():
+        def run(qc, qp):
+            return checkpoint(one_chunk, qc, qp, use_reentrant=False)
+    else:
+        run = one_chunk
+    return torch.cat([run(q[:, :, i:i + q_chunk], q_pos[i:i + q_chunk])
                       for i in range(0, s, q_chunk)], dim=2)
 
 

@@ -38,6 +38,17 @@ _MIXER_LEAVES = {
 }
 
 
+#: the port's name prefixes of the reference's stacked trees
+#: (``decoder`` → ``layers``, ``encoder`` → ``encoder``)
+STACKED = ("layers.", "encoder.")
+
+
+def reference_ndim(name: str, ndim: int) -> int:
+    """The rank of the reference's leaf for the port's leaf ``name`` of
+    rank ``ndim``: one more under a stacked tree (the ``n_groups`` axis)."""
+    return ndim + 1 if name.startswith(STACKED) else ndim
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
     for key, val in tree.items():
         path = f"{prefix}{key}"
@@ -100,3 +111,4 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     if flat:
         raise ValueError(f"JAX parameters not consumed: {sorted(flat)}")
     return out
+

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.context import DeviceLike, resolve_device
@@ -116,19 +117,40 @@ def build_stack(cfg: ModelConfig, cross: bool, generator: torch.Generator,
 
 
 def apply_stack(layers: nn.ModuleList, x, *, mode: str, caches, positions,
-                enc_out=None, causal: bool = True, cache_len: int = 0):
-    """→ (x, per-layer new caches, metrics summed over the layers)."""
+                enc_out=None, causal: bool = True, cache_len: int = 0,
+                remat_group: int = 0):
+    """→ (x, per-layer new caches, metrics summed over the layers).
+
+    ``remat_group`` > 0 (training with ``cfg.remat``, grad enabled):
+    each run of that many consecutive layers — one repetition of the
+    block pattern, the reference's scan step under ``jax.checkpoint`` —
+    keeps only its input for the backward pass and recomputes the rest.
+    """
+    def run(x, lo, hi):
+        ncs, ms = [], []
+        for j in range(lo, hi):
+            x, nc, m = layers[j](
+                x, mode=mode, cache=caches[j] if caches is not None else None,
+                positions=positions, enc_out=enc_out, causal=causal,
+                cache_len=cache_len)
+            ncs.append(nc)
+            ms.append(m)
+        return x, ncs, ms
+
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in METRICS}
     new_caches = []
-    for j, layer in enumerate(layers):
-        x, nc, m = layer(x, mode=mode,
-                         cache=caches[j] if caches is not None else None,
-                         positions=positions, enc_out=enc_out, causal=causal,
-                         cache_len=cache_len)
-        if m is not None:
-            aux = {k: aux[k] + m[k] for k in METRICS}
-        new_caches.append(nc)
+    step = remat_group or len(layers)
+    for lo in range(0, len(layers), step):
+        hi = min(lo + step, len(layers))
+        if remat_group:
+            x, ncs, ms = checkpoint(run, x, lo, hi, use_reentrant=False)
+        else:
+            x, ncs, ms = run(x, lo, hi)
+        new_caches += ncs
+        for m in ms:
+            if m is not None:
+                aux = {k: aux[k] + m[k] for k in METRICS}
     return x, new_caches, aux
 
 
@@ -138,16 +160,25 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
         n_experts=0, window=None)
 
 
+def remat_layers(cfg: ModelConfig) -> int:
+    """Layers a rematerialized group holds: one repetition of the block
+    pattern when ``cfg.remat`` is set and autograd records, else 0."""
+    return cfg.group_size if cfg.remat and torch.is_grad_enabled() else 0
+
+
 class LM(nn.Module):
-    """The reference's LM with its parameters, in ``cfg.dtype`` (float32
-    where the reference uses a leaf uncast), drawn from ``generator`` on
-    ``device`` (``None``: the card)."""
+    """The reference's LM with its parameters drawn from ``generator`` on
+    ``device`` (``None``: the card), stored in ``param_dtype``: the
+    compute dtype ``cfg.dtype`` by default (serving), float32 masters for
+    training (``cfg.param_dtype``).  Leaves the reference uses uncast are
+    float32 either way."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = resolve_device(device)
-        dt = compute_dtype(cfg)
+        dt = param_dtype or compute_dtype(cfg)
         self.cfg = cfg
         self.embed = dense_param((cfg.vocab_size, cfg.d_model), generator, dt,
                                  dev, fan_in=cfg.d_model)
@@ -162,6 +193,19 @@ class LM(nn.Module):
                                        dt, dev)
             self.enc_norm = RMSNorm(cfg.d_model, dt, dev)
 
+    @classmethod
+    def from_state_dict(cls, cfg: ModelConfig, state_dict,
+                        device: DeviceLike = None) -> "LM":
+        """The model with ``state_dict``'s weights (say, a trainer's
+        float32 masters) on ``device``, stored in the compute dtype:
+        built on the meta device, so no random weights are drawn first."""
+        model = cls(cfg, torch.Generator(), "meta")
+        model = model.to_empty(device=resolve_device(device))
+        with torch.no_grad():
+            model.load_state_dict(
+                {k: v.detach() for k, v in state_dict.items()})
+        return model
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -172,7 +216,9 @@ class LM(nn.Module):
         f = frontend_embeds.shape[1]
         pos = torch.arange(f, dtype=torch.int32, device=frontend_embeds.device)
         h, _, _ = apply_stack(self.encoder, frontend_embeds, mode="train",
-                              caches=None, positions=pos, causal=False)
+                              caches=None, positions=pos, causal=False,
+                              remat_group=remat_layers(
+                                  encoder_config(self.cfg)))
         return self.enc_norm(h, self.cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor, *, mode: str = "train",
@@ -206,7 +252,8 @@ class LM(nn.Module):
 
         x, layer_caches, aux = apply_stack(
             self.layers, x, mode=mode, caches=cache, positions=positions,
-            enc_out=enc_out, cache_len=cache_len)
+            enc_out=enc_out, cache_len=cache_len,
+            remat_group=remat_layers(cfg) if mode == "train" else 0)
 
         if last_logit_only:
             x = x[:, -1:]

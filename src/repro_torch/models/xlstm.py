@@ -212,7 +212,9 @@ class SLSTM(nn.Module):
         fp = torch.exp(f_log + m - m_new)
         c_new = fp * c + ip * z
         n_new = fp * n + ip
-        h_new = o * c_new / torch.clamp(n_new, min=1.0)
+        # jnp.maximum, not clamp: n_new is exactly 1 at the first step,
+        # where the maximum's gradient splits between its arguments
+        h_new = o * c_new / torch.maximum(n_new, n_new.new_ones(()))
         return h_new, c_new, n_new, m_new
 
     def forward(self, x: torch.Tensor, *, mode: str = "train",

@@ -13,7 +13,10 @@ the JAX package's (``repro.core.dataflow``).
   * the bridges — ``TSet.from_spill`` / ``SpillResult.to_tset``,
     ``ScanSource.to_tset`` and ``TSet.lazy``;
   * ``reduce("mean")`` — the port returns the true mean where the
-    reference averages per-chunk means (ROADMAP Queue 3).
+    reference averages per-chunk means (ROADMAP Queue 3);
+  * the training data pipeline's ``preprocess`` (a TSet select, project,
+    join and collect, then an orderby) on 4 shards, its JAX side in the
+    same subprocess.
 """
 import json
 import os
@@ -261,6 +264,15 @@ def jax4():
                     out[name + "/rows/" + k] = v
                 out[name + "/counts"] = np.asarray(res.counts)
                 out[name + "/part"] = np.asarray(repr(res.partitioning))
+
+        # the training data pipeline's curated stream on 4 shards
+        from repro.data.pipeline import CorpusConfig
+        from test_torch_pipeline import CORPORA, jax_preprocess
+        for cname, kw in CORPORA.items():
+            stream, counts = jax_preprocess(CorpusConfig(**kw), ctx)
+            out["preprocess/" + cname] = stream
+            out["preprocess/" + cname + "/overflow"] = np.asarray(
+                sum(counts))
     """, {})
 
 
@@ -279,6 +291,28 @@ def test_tset_4shards_matches_jax(jax4, name):
     _assert_case(name, out, report, jout,
                  json.loads(str(jax4[name + "/report"])))
     assert report.is_exact()
+
+
+@pytest.mark.parametrize("corpus", ["seed3", "wide"])
+def test_preprocess_4shards_matches_jax(jax4, corpus):
+    """The curated stream bit for bit.  On the 32-document corpus the
+    join overflows on 4 shards (its output capacity is the tokens'
+    capacity a shard, and 32 documents hash unevenly): of 1024 good
+    token rows 881 come out, in both packages — the reference's
+    ``preprocess`` does not read the report (ROADMAP Queue 3)."""
+    from repro_torch.data import pipeline as TP
+    from test_torch_pipeline import CORPORA
+
+    ccfg = TP.CorpusConfig(**CORPORA[corpus])
+    array_ops.EXCHANGES.reset()
+    got = TP.preprocess(TP.synthetic_corpus(ccfg, CPU4), ccfg, CPU4)
+    assert array_ops.EXCHANGES.n == 3       # the join's two, the orderby's
+    want = jax4["preprocess/" + corpus]
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if corpus == "seed3":
+        assert got.shape[0] == 881
+        assert int(jax4["preprocess/seed3/overflow"]) > 0
 
 
 def test_combiner_groupby_one_exchange_a_chunk_none_at_merge():

@@ -595,3 +595,21 @@ def test_segment_kernels_on_a_tset_chunk(dev, monkeypatch, n_shards):
     for v, seg, s, op in one:
         assert _minmax_bits_equal(one_kernel(v, seg, s, op),
                                   srr.segment_reduce(v, seg, s, op))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_raises_under_grad(dev, dtype):
+    """The CUDA kernels are forward only: with autograd recording and an
+    input that requires grad the op raises before it launches, as it
+    does on the CPU; without grad it launches."""
+    q = torch.randn(1, 2, 128, 64, device=dev, dtype=dtype,
+                    requires_grad=True)
+    k = torch.randn(1, 2, 128, 64, device=dev, dtype=dtype)
+    v = torch.randn(1, 2, 128, 64, device=dev, dtype=dtype)
+    before = fak.LAUNCHES.n
+    with pytest.raises(RuntimeError, match="forward only"):
+        fao.flash_attention(q, k, v)
+    assert fak.LAUNCHES.n == before
+    with torch.no_grad():
+        out = fao.flash_attention(q, k, v)
+    assert fak.LAUNCHES.n == before + 1 and out.grad_fn is None
