@@ -37,8 +37,9 @@ Phases (every failed check raises; nothing is caught):
    mixtral-like (1, 32/8, 8192, 128) with ``window=4096``, a decode-like
    query at ``q_offset`` over a right-padded cache (``kv_len``) in float32
    and bfloat16, a ragged length of 1000, qwen2-moe's (8, 16, 1024, 128),
-   internvl2's patch-prefixed (8, 64/8, 1280, 128) and a non-causal
-   whisper-encoder case (8, 16, 1500, 64) — against its plain version
+   internvl2's patch-prefixed (8, 64/8, 1280, 128), a non-causal
+   whisper-encoder case (8, 16, 1500, 64) and deepseek-67b's GQA (8,
+   64/8, 1024, 128) — against its plain version
    to 2e-4 (float32, the SIMT kernel) and 2e-2 (bfloat16, the tensor-core
    kernel), each case naming the instance that ran (``impl``), timed
    beside ``scaled_dot_product_attention``;
@@ -241,7 +242,33 @@ Phases (every failed check raises; nothing is caught):
    preprocess seconds, exchanges, launches, losses, checkpoint GB/s and
    restore seconds, and the seconds of phases 25-26
    (``train_seconds``);
-27. summary — the script's seconds so far, the ``kernels`` JSON line, the
+27. paper Table I and the MDS composition: (a) each global-view
+   collective of ``core/array_ops.py`` (allreduce sum/max/mean,
+   allgather, alltoall, reduce_scatter, broadcast, gather, scatter,
+   reduce) on a 256 MB float32 input (``(4, 2^24)``; alltoall ``(16,
+   2^22)``, so that each shard's block splits into one chunk a shard) on
+   4 virtual shards and on 1, against a numpy oracle (exact, float sums
+   and means to ``1e-6 * sum|x|``), alltoall one exchange on 4 shards and
+   every other call none; ms (CUDA events) beside the bytes bound.  (b)
+   ``apps/mds.py`` at 2^15 points, 3 dimensions, 100 SMACOF iterations
+   (δ is 32768^2 float32, 4.3 GB) on 1 and 4 virtual shards: the curated
+   ids and points equal the numpy oracle's, the table side makes 0 / 1
+   exchanges (``sort_values``'s range exchange) and launches no kernel; δ
+   on 4 shards against 1 and both against a float64 δ on 64 sampled rows;
+   the stress path finite, its last value below 0.8 of its first, never
+   rising beyond rounding, the float64 stress of the returned embedding
+   not above its last value, the 1- and 4-shard paths alike
+   (``MDS_LIMITS``); prints δ ms, ms a SMACOF iteration beside one read
+   of δ, the 4-shard pipeline's seconds (median of 3 after a warm-up
+   checked against the pieces' path) and peak GiB;
+28. deepseek-67b served as phases 18-24 serve the families cut in depth:
+   10 of its 95 layers (two of its nineteen 5-layer groups: 17.2 GB of
+   bf16 weights), every width as published; 10 flash launches in the
+   prefill, all on the tensor-core kernel, each held against ``attend``;
+   the prefill logits against the plain path's (2e-2 of the largest);
+   float32 greedy tokens equal on the SIMT kernel (10 launches) and the
+   plain path.  Prints the seconds of phases 27-28 (``array_seconds``);
+29. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -300,6 +327,9 @@ FAMILIES = [("qwen2-moe-a2.7b", None, 3), ("minicpm3-4b", None, 3),
             ("xlstm-125m", None, 3), ("whisper-medium", None, 3),
             ("mixtral-8x7b", 8, 1), ("jamba-v0.1-52b", 8, 1),
             ("internvl2-76b", 8, 1)]
+# phase 28: deepseek-67b, 10 of its 95 layers (two of its nineteen 5-layer
+# groups): 17.2 GB of bf16 weights, where whole it would take ~134 GB
+DEEPSEEK = ("deepseek-67b", 10, 1)
 DECODE_VS_PREFILL = ("minicpm3-4b", "jamba-v0.1-52b", "xlstm-125m")
 PROFILED = ("phi3-mini-3.8b", "smollm-360m", "qwen2-moe-a2.7b",
             "jamba-v0.1-52b")
@@ -869,6 +899,8 @@ FLASH_CASES = [
      None, 0),
     ("whisper encoder", 8, 16, 16, 1500, 1500, 64, "bfloat16", False, None,
      None, 0),
+    ("deepseek-67b prefill", 8, 64, 8, 1024, 1024, 128, "bfloat16", True,
+     None, None, 0),
 ]
 
 
@@ -2936,6 +2968,237 @@ def workflow_phase(dev, seed: int, launches) -> dict:
             "log_tail": logs[-3:], "bytes_written": wbytes}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: Table I collectives and the MDS composition
+# ---------------------------------------------------------------------------
+#: phase 27a: one 256 MB float32 input a collective, on 1 and 4 virtual
+#: shards; alltoall splits each shard's block into one chunk a shard, so
+#: it takes the same bytes as 16 rows (4 rows a block)
+COLL_SHAPE, COLL_A2A_SHAPE = (4, 1 << 24), (16, 1 << 22)
+COLLECTIVES = [("allreduce", {"op": "sum"}), ("allreduce", {"op": "max"}),
+               ("allreduce", {"op": "mean"}), ("allgather", {}),
+               ("alltoall", {}), ("reduce_scatter", {}),
+               ("broadcast", {"root": 2}), ("gather", {"root": 3}),
+               ("scatter", {"root": 1}), ("reduce", {"root": 1, "op": "sum"})]
+#: phase 27b: MDS at 2^15 points (δ is 32768^2 float32, 4.3 GB)
+MDS = {"n": 1 << 15, "dim": 3, "iters": 100, "sample_rows": 64}
+#: phase 27b's limits (readings: NVIDIA H100 80GB HBM3, 700 W; PERF.md §6,
+#: the array-side entry): δ on 4 shards against 1 shard (max |err| over
+#: max δ; read 0, bit for bit: limit one float32 ulp) and against a
+#: float64 δ on sampled rows (read 4.8e-7: about 3x); a stress step's rise
+#: over the stress and the float64 stress of the returned embedding over
+#: ``path[-1]`` (read -5.0e-4 and -3.4e-3, both fell: limit a float32
+#: sum's rounding); the 1- against the 4-shard stress paths over the first
+#: stress (read 0)
+MDS_LIMITS = {"delta_4v1": 1.2e-7, "delta_vs_f64": 1.5e-6,
+              "stress_rise": 1e-6, "final_f64_over_last": 1e-6,
+              "paths_1v4": 1.2e-7}
+
+
+def collective_oracle(name, kw, x, s):
+    """``(expected, scale, bytes the operator must read)``: ``scale`` is
+    ``None`` for an exact result, else the ``sum|x|`` of each float sum
+    or mean (float64 numpy)."""
+    n, c = x.shape
+    heads = x.reshape(s, n // s, c)[:, 0] if s > 1 else x
+    read = heads.nbytes if name in ("allreduce", "broadcast", "reduce") \
+        else x.nbytes
+    op = kw.get("op", "sum")
+    if name in ("allreduce", "reduce"):
+        if op == "max":
+            exp, scale = heads.max(0), None
+        else:
+            h = heads.astype(np.float64)
+            exp, scale = h.sum(0), np.abs(h).sum(0)
+            if op == "mean":
+                exp, scale = exp / len(h), scale / len(h)
+        if name == "reduce":
+            full = np.zeros((s, c), exp.dtype)
+            full[kw["root"] if s > 1 else 0] = exp
+            exp = full
+            if scale is not None:
+                scale = np.broadcast_to(scale, full.shape)
+        return exp, scale, read
+    if name == "alltoall" and s > 1:
+        return (x.reshape(s, s, n // s // s, c).transpose(1, 0, 2, 3)
+                .reshape(n, c)), None, read
+    if name == "reduce_scatter" and s > 1:
+        return s * x.astype(np.float64), s * np.abs(x.astype(np.float64)), \
+            read
+    if name == "broadcast":
+        return (heads if s > 1 else x)[kw["root"]], None, read
+    if name == "gather":
+        if s == 1:
+            return x[None], None, read
+        full = np.zeros((s, n, c), x.dtype)
+        full[kw["root"]] = x
+        return full, None, read
+    return x, None, read  # allgather, scatter; alltoall/reduce_scatter on 1
+
+
+def collectives_phase(dev, seed: int) -> dict:
+    """Phase 27a: each Table I operator on 4 virtual shards and on 1,
+    against a numpy oracle; exchanges, ms and the bytes bound."""
+    from repro_torch.core import HPTMTContext, array_ops
+
+    rng = np.random.default_rng(seed + 27)
+    inputs = {shape: rng.standard_normal(shape, dtype=np.float32)
+              for shape in (COLL_SHAPE, COLL_A2A_SHAPE)}
+    out = {}
+    for s in (4, 1):
+        ctx = HPTMTContext(n_shards=s, device="cuda")
+        for name, kw in COLLECTIVES:
+            x = inputs[COLL_A2A_SHAPE if name == "alltoall" else COLL_SHAPE]
+            xd = torch.from_numpy(x).to(dev)
+            fn = getattr(array_ops, name)
+            array_ops.EXCHANGES.reset()
+            got = fn(xd, ctx=ctx, **kw)
+            torch.cuda.synchronize()
+            ex = array_ops.EXCHANGES.n
+            wrote = got.numel() * got.element_size()
+            check(ex == int(name == "alltoall" and s > 1),
+                  f"{name} on {s} shards: {ex} exchanges")
+            exp, scale, read = collective_oracle(name, kw, x, s)
+            g = got.cpu().numpy()
+            check(g.shape == exp.shape and g.dtype == np.float32,
+                  f"{name} on {s} shards: shape {g.shape} / {exp.shape}")
+            if scale is None:
+                check(np.array_equal(g, exp), f"{name} on {s} shards: exact")
+                err = 0.0
+            else:
+                diff = np.abs(g - exp)
+                check(bool((diff <= 1e-6 * scale).all()),
+                      f"{name} on {s} shards: within 1e-6 sum|x|")
+                err = float(diff.max())
+            del g, exp, scale
+            # an operator that returns (a view of) its input moves nothing
+            same = (got.untyped_storage().data_ptr()
+                    == xd.untyped_storage().data_ptr())
+            del got
+            nbytes = 0 if same else read + wrote
+            ms = cuda_ms(lambda: fn(xd, ctx=ctx, **kw))
+            tag = name + "".join(f" {k}={v}" for k, v in kw.items())
+            out[f"{tag}/{s}"] = {"ms": ms, "bound_ms": bound(nbytes)[0],
+                                 "bytes": nbytes, "max_abs_err": err,
+                                 "exchanges": ex}
+            del xd
+    torch.cuda.empty_cache()
+    return out
+
+
+def mds_oracle(n: int, seed: int):
+    """The curated ids and points of the reference's point table, by numpy
+    alone (its draws, its quality clamp, ``quality >= 0.5``, by id)."""
+    rng = np.random.default_rng(seed)
+    n_raw = n + n // 3 + 1
+    feats = rng.normal(size=(n_raw, 4)).astype(np.float32)
+    quality = rng.uniform(size=n_raw).astype(np.float32)
+    order = np.argsort(-quality)
+    quality[order[:n]] = np.clip(quality[order[:n]], 0.5, None)
+    quality[order[n:]] = np.clip(quality[order[n:]], None, 0.49)
+    keep = quality >= 0.5
+    return np.arange(n_raw, dtype=np.int32)[keep], feats[keep]
+
+
+def stress_f64(delta, x, chunk: int = 1024) -> float:
+    """SMACOF's stress of ``x`` in float64 against the float32 δ (the
+    diagonal left out), in row chunks."""
+    x64 = x.double()
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for lo in range(0, x.shape[0], chunk):
+        d = torch.cdist(x64[lo:lo + chunk], x64,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        sq = (delta[lo:lo + chunk].double() - d) ** 2
+        i = torch.arange(sq.shape[0], device=x.device)
+        sq[i, i + lo] = 0
+        total += sq.sum()
+    return float(total) / 2
+
+
+def mds_phase(dev, seed: int, launches) -> dict:
+    """Phase 27b: ``mds_pipeline``'s pieces at 2^15 points on 1 and 4
+    virtual shards: the curated ids, δ, SMACOF, the stress path."""
+    from repro_torch.apps import mds
+    from repro_torch.core import HPTMTContext
+
+    n, dim, iters = MDS["n"], MDS["dim"], MDS["iters"]
+    ids, pts = mds_oracle(n, seed)
+    rows = torch.as_tensor(np.random.default_rng(seed + 28).choice(
+        n, MDS["sample_rows"], replace=False), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    out, delta, paths, xs = {}, {}, {}, {}
+    for s in (1, 4):
+        ctx = HPTMTContext(n_shards=s, device="cuda")
+        launches.reset()
+        curated = mds.curated_table(n, ctx, seed)
+        counts, ex = launches.read()
+        check(ex == (0 if s == 1 else 1), f"mds {s} shards: table side made "
+              f"{ex} exchanges (sort_values: 1 on 4 shards)")
+        check(not any(counts.values()), f"mds {s} shards: launches {counts}")
+        check(np.array_equal(curated.to_numpy()["id"], ids),
+              f"mds {s} shards: curated ids equal the numpy oracle's")
+        points = curated.to_torch(mds.FEATURES)
+        check(np.array_equal(points.cpu().numpy(), pts),
+              f"mds {s} shards: curated points equal the numpy oracle's")
+        delta[s] = mds.distance_matrix(points, ctx)
+        check(delta[s].shape == (n, n), f"mds {s} shards: δ shape")
+        ms = cuda_ms(lambda: mds.distance_matrix(points, ctx), reps=3)
+        # the float64 oracle on sampled rows, the diagonal left out
+        p64 = points.double()
+        d64 = torch.cdist(p64[rows], p64,
+                          compute_mode="donot_use_mm_for_euclid_dist")
+        d64[torch.arange(len(rows), device=dev), rows] = float("nan")
+        err = float(torch.nan_to_num((delta[s][rows].double() - d64).abs())
+                    .max() / d64.nan_to_num().max())
+        check(err <= MDS_LIMITS["delta_vs_f64"],
+              f"mds {s} shards: δ against float64 {err}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths[s], xs[s] = mds.smacof(delta[s], dim, iters, seed)
+        smacof_s = time.perf_counter() - t0
+        out[f"mds_{s}"] = {"exchanges": ex, "delta_ms": ms,
+                           "delta_vs_f64": err, "smacof_s": smacof_s,
+                           "ms_per_iteration": smacof_s / iters * 1e3}
+        del curated, points, p64, d64
+    scale = float(delta[1].abs().max())
+    out["delta_4v1"] = float((delta[4] - delta[1]).abs().max()) / scale
+    check(out["delta_4v1"] <= MDS_LIMITS["delta_4v1"],
+          f"mds: δ on 4 shards against 1: {out['delta_4v1']}")
+    for s in (1, 4):
+        path = np.asarray(paths[s])
+        check(np.isfinite(path).all() and path[-1] < 0.8 * path[0],
+              f"mds {s} shards: stress path {path[[0, -1]]}")
+        rise = float((np.diff(path) / path[:-1]).max())
+        check(rise <= MDS_LIMITS["stress_rise"],
+              f"mds {s} shards: the stress rose by {rise}")
+        final = stress_f64(delta[s], xs[s])
+        over = final / path[-1] - 1
+        check(over <= MDS_LIMITS["final_f64_over_last"],
+              f"mds {s} shards: float64 stress {final} of the embedding "
+              f"against path[-1] {path[-1]}")
+        out[f"mds_{s}"].update(stress_first=path[0], stress_last=path[-1],
+                               stress_max_rise=rise, final_stress_f64=final,
+                               final_f64_over_last=over)
+    out["paths_1v4"] = float(np.abs(np.asarray(paths[4]) - paths[1]).max()
+                             / paths[1][0])
+    check(out["paths_1v4"] <= MDS_LIMITS["paths_1v4"],
+          f"mds: 1- against 4-shard stress paths {out['paths_1v4']}")
+    del delta, xs
+    torch.cuda.empty_cache()
+    # the whole pipeline on 4 shards: a warm-up checked against the pieces'
+    # path, then 3 timed runs
+    ctx4 = HPTMTContext(n_shards=4, device="cuda")
+    path, _ = mds.mds_pipeline(n, dim, iters, ctx4, seed)
+    check(path == paths[4], "mds pipeline on 4 shards: the pieces' path")
+    runs = timed_runs(lambda: mds.mds_pipeline(n, dim, iters, ctx4, seed))
+    out["pipeline_4"] = {"median_s": statistics.median(runs), "runs_s": runs}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["bound_ms_per_iteration"] = bound(n * n * 4)[0]
+    torch.cuda.empty_cache()
+    return out
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3196,7 +3459,24 @@ def main() -> int:
     train_s["workflow"] = time.perf_counter() - t0
     emit("train_seconds", total=sum(train_s.values()), **train_s)
 
-    # 27. summary
+    # 27. Table I collectives and the MDS composition, 1 and 4 shards
+    array_s = {}
+    t0 = time.perf_counter()
+    for tag, fields in collectives_phase(dev, args.seed).items():
+        emit("collective", case=tag, **fields)
+    array_s["collectives"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emit("mds", **mds_phase(dev, args.seed, launches))
+    array_s["mds"] = time.perf_counter() - t0
+
+    # 28. deepseek-67b served, cut in depth
+    t0 = time.perf_counter()
+    arch, depth, runs = DEEPSEEK
+    serve_phase(arch, dev, args.seed, launches, args.profile, depth, runs)
+    array_s["deepseek"] = time.perf_counter() - t0
+    emit("array_seconds", total=sum(array_s.values()), **array_s)
+
+    # 29. summary
     kernels = []
     for r in krows:
         name = r["name"]

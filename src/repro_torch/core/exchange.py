@@ -39,7 +39,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .array_ops import SORTS, all_to_all, allgather
+from .array_ops import SORTS, all_to_all, spmd_allgather
 
 Cols = Dict[str, torch.Tensor]
 
@@ -385,7 +385,7 @@ def range_splitters(lanes: Sequence[torch.Tensor],
             torch.arange(n_samples, device=ln.device) * stride,
             torch.clamp(count - 1, min=0))
         samples.append(torch.where((sidx < count)[:, None], ln[sidx], _M32))
-    sample = allgather(samples).reshape(-1, lanes[0].shape[1])
+    sample = spmd_allgather(samples)[0]
     sample = sample[lex_order(sample, None)]
     total = sample.shape[0]
     spos = (torch.arange(1, n_shards, device=sample.device) * total) \

@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .array_ops import allgather, allreduce, ppermute
+from .array_ops import spmd_allgather, spmd_allreduce, spmd_ppermute
 from .context import HPTMTContext
 from .exchange import (_scatter_rows, check_no_reserved, compact_rows,
                        hash_shuffle, key_compare_u32, lex_order, order_lanes,
@@ -102,7 +102,7 @@ def shuffle(dt: DistTable, keys: Sequence[str], *, ctx: HPTMTContext,
         _bucket_capacity(dt.capacity, n, bucket_factor),
         out_capacity or dt.capacity)
     return (DistTable.from_shards(out, new_counts, (tuple(keys), n)),
-            allreduce(overflow))
+            spmd_allreduce(overflow)[0])
 
 
 # ===========================================================================
@@ -194,7 +194,8 @@ def orderby(dt: DistTable, by, *, ctx: HPTMTContext,
         cols, counts, keys, asc, n,
         _bucket_capacity(dt.capacity, n, bucket_factor),
         out_capacity or dt.capacity, n_samples=min(n_samples, dt.capacity))
-    return DistTable.from_shards(out, new_counts, part), allreduce(overflow)
+    return (DistTable.from_shards(out, new_counts, part),
+            spmd_allreduce(overflow)[0])
 
 
 @operator("table.local_sort", Abstraction.TABLE)
@@ -284,7 +285,7 @@ def window_aggregate(dt: DistTable, partition_by, order_by, aggs, *,
                               n_shards=n)
     outs = [dict(c, **nc) for c, nc in zip(cols, new_cols)]
     return (DistTable.from_shards(outs, counts, part),
-            allreduce([a + b for a, b in zip(ov, o)]))
+            spmd_allreduce([a + b for a, b in zip(ov, o)])[0])
 
 
 def rank(dt: DistTable, partition_by, order_by, *, ctx: HPTMTContext,
@@ -335,9 +336,9 @@ def topk(dt: DistTable, by, k: int, *, ctx: HPTMTContext,
     for t in range(max(n - 1, 0).bit_length()):
         step = 1 << t
         perm = [(s + step, s) for s in range(0, n - step, 2 * step)]
-        recv = {name: ppermute([c[name] for c in cand], perm)
+        recv = {name: spmd_ppermute([c[name] for c in cand], perm)
                 for name in cand[0]}
-        rcnt = ppermute(ccnt, perm)
+        rcnt = spmd_ppermute(ccnt, perm)
         # only receivers merge: a shard that receives nothing would merge
         # with zero valid rows and keep its candidates
         for _, s in perm:
@@ -372,8 +373,8 @@ def _quantile_approx(cols, counts, column, qarr, n_samples):
         ok = sidx < scnt
         samples.append(torch.where(ok, svals["v"][sidx], float("inf")))
         nvals.append(ok.sum(dtype=torch.int32))
-    sample = allgather(samples).reshape(-1)
-    nval = allreduce(nvals)
+    sample = spmd_allgather(samples)[0]
+    nval = spmd_allreduce(nvals)[0]
     sample = sample[lex_order([sample], None)]  # invalid (+inf) sort last
     t = qarr * torch.clamp(nval - 1, min=0).to(torch.float32)
     lo, hi = torch.floor(t).to(torch.int64), torch.ceil(t).to(torch.int64)
@@ -393,7 +394,7 @@ def _quantile_exact(cols, counts, column, qarr, sort_ov):
         vals.append(col)
         nns.append((_mask_for(count, col.shape[0])
                     & ~torch.isnan(col)).sum(dtype=torch.int32))
-    nn_all = allgather(nns)
+    nn_all = spmd_allgather(nns, tiled=False)[0]
     offsets = torch.cumsum(nn_all, 0) - nn_all
     total = nn_all.sum()
     t = qarr * torch.clamp(total - 1, min=0).to(torch.float32)
@@ -406,13 +407,13 @@ def _quantile_exact(cols, counts, column, qarr, sort_ov):
             have = (local >= 0) & (local < nns[s])
             parts.append(torch.where(
                 have, col[torch.clamp(local, 0, col.shape[0] - 1)], 0.0))
-        return allreduce(parts)
+        return spmd_allreduce(parts)[0]
 
     vlo, vhi = fetch(lo), fetch(hi)
     out = vlo + (t - lo.to(torch.float32)) * (vhi - vlo)
     # a skew-overflowed internal sort dropped rows: poison, never mislead
-    return torch.where((total > 0) & (allreduce(sort_ov) == 0), out,
-                       float("nan"))
+    return torch.where((total > 0) & (spmd_allreduce(sort_ov)[0] == 0),
+                       out, float("nan"))
 
 
 @operator("table.quantile", Abstraction.TABLE)
@@ -718,7 +719,7 @@ def _join_impl(lc: List[Cols], lcnt, rc: List[Cols], rcnt, *, keys, how,
         outs.append(out)
         counts.append(cnt)
         ov[s] = ov[s] + o
-    return outs, counts, allreduce(ov)
+    return outs, counts, spmd_allreduce(ov)[0]
 
 
 @operator("table.join", Abstraction.TABLE)
@@ -1016,7 +1017,7 @@ def _groupby_impl(cols, counts, *, keys, aggs, n_shards, bucket,
         out, n_seg, ov = _local_groupby_all(
             cols, counts, keys=keys, aggs=aggs, out_capacity=out_capacity,
             method=method)
-    return out, n_seg, allreduce(ov)
+    return out, n_seg, spmd_allreduce(ov)[0]
 
 
 @operator("table.groupby", Abstraction.TABLE)
@@ -1097,9 +1098,9 @@ def aggregate(dt: DistTable, column: str, op: str, *, ctx: HPTMTContext):
         return segops.segment_reduce(
             v, torch.zeros(v.shape, dtype=torch.int32, device=v.device), 1,
             op)[0]
-    v = allreduce(vals)
+    v = spmd_allreduce(vals)[0]
     if op == "mean":
-        v = v / torch.clamp(allreduce(rows), min=1.0)
+        v = v / torch.clamp(spmd_allreduce(rows)[0], min=1.0)
     return v
 
 
@@ -1199,7 +1200,7 @@ def _setop_impl(ac, acnt, bc, bcnt, *, kind, names, n_shards, abucket,
         outs.append(out)
         counts.append(cnt)
         ov[s] = ov[s] + o
-    return outs, counts, allreduce(ov)
+    return outs, counts, spmd_allreduce(ov)[0]
 
 
 def _make_setop(kind: str, opname: str, doc: str):
@@ -1256,9 +1257,9 @@ def cartesian(a: DistTable, b: DistTable, *, ctx: HPTMTContext,
     bcols, bcnt = b.shards()
     acap, bcap = a.capacity, b.capacity
     # the all-gather moves whole blocks, not rows by key: no exchange
-    bg_cols = {k: allgather([c[k] for c in bcols]).reshape(
-        (-1,) + tuple(bcols[0][k].shape[1:])) for k in bcols[0]}
-    bns = allgather(bcnt)
+    bg_cols = {k: spmd_allgather([c[k] for c in bcols])[0]
+               for k in bcols[0]}
+    bns = spmd_allgather(bcnt, tiled=False)[0]
     bg = bns.shape[0] * bcap
     dev = bns.device
     pos = torch.arange(bg, device=dev)

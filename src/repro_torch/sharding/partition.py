@@ -1,0 +1,203 @@
+"""Parameter and cache partitioning: the port's parameter names → specs.
+
+Ports ``src/repro/sharding/partition.py``.  Strategy (DESIGN.md §5): FSDP
+(ZeRO-3) over the ``data`` axis × tensor parallelism over ``model`` —
+heads/ff/vocab/experts on ``model``, the d_model ("fsdp") dimension on
+``data``.  Rules are *shape-validated*: if a dimension is not divisible by
+its mapped mesh axes the axis is dropped (e.g. kv_heads=8 on a 16-way
+model axis ⇒ replicated KV projections; mixtral's 8 experts ⇒
+expert-internal TP fallback instead of EP).
+
+The port's layers are not stacked: a parameter is named
+``layers.{i}.mixer.wq`` where the reference has ``decoder/layer_{i %
+group_size}/mixer/wq`` with a leading group axis, and its leaves keep the
+reference's layouts (``models/params.py:params_from_jax`` copies each
+group's slice as it is).  So a port spec is the reference's without the
+leading ``None`` of the group axis, and a layer's kind is
+``cfg.block_pattern[i % cfg.group_size]``.  Caches likewise: one dict a
+layer, no group axis.  Specs are tuples (see ``axes.py``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+from ..configs.base import ModelConfig
+from ..models.transformer import Caches
+from . import axes as axes_mod
+from .axes import Mesh
+
+# rules keyed by (context, leaf name): logical axes per dim
+_ATTN_RULES = {
+    "wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+    "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp"),
+    "wdq": ("fsdp", None), "wuq": (None, "heads"),
+    "wdkv": ("fsdp", None), "wukv": (None, "heads"),
+}
+_MAMBA_RULES = {
+    "in_proj": ("fsdp", "ssm_inner"), "conv_w": (None, "ssm_inner"),
+    "conv_b": ("ssm_inner",), "x_proj": ("ssm_inner", None),
+    "dt_proj": (None, "ssm_inner"), "dt_bias": ("ssm_inner",),
+    "a_log": ("ssm_inner", None), "d_skip": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "fsdp"),
+}
+_XLSTM_RULES = {
+    "w_up": ("fsdp", "ssm_inner"), "wq": (None, "ssm_inner"),
+    "wk": (None, "ssm_inner"), "wv": (None, "ssm_inner"),
+    "w_gates": (None, None), "b_gates": (None,),
+    "w_down": ("ssm_inner", "fsdp"),
+    "w_x": ("fsdp", None), "w_h": (None, None), "b": (None,),
+}
+_DENSE_FFN_RULES = {
+    "w_gate": ("fsdp", "ff"), "w_in": ("fsdp", "ff"), "w_out": ("ff", "fsdp"),
+}
+_MOE_RULES = {
+    "router": ("fsdp", None),
+    "w_gate": ("expert", "fsdp", None), "w_in": ("expert", "fsdp", None),
+    "w_out": ("expert", None, "fsdp"),
+}
+_MOE_TP_RULES = {  # fallback when E doesn't divide the model axis
+    "router": ("fsdp", None),
+    "w_gate": (None, "fsdp", "ff"), "w_in": (None, "fsdp", "ff"),
+    "w_out": (None, "ff", "fsdp"),
+}
+
+
+def _axis_size(mesh: Mesh, logical: Optional[str], rules) -> int:
+    if logical is None:
+        return 1
+    mapped = rules.get(logical)
+    if mapped is None:
+        return 1
+    mapped = (mapped,) if isinstance(mapped, str) else mapped
+    return math.prod(mesh.get(a, 1) for a in mapped)
+
+
+def _layer_kind(names: Tuple[str, ...], cfg: ModelConfig) -> str:
+    """The kind of the layer a mixer leaf belongs to.  An encoder's stack
+    has one pattern entry, so the reference reads it at index 0."""
+    i = int(names[1]) if names[0] == "layers" else 0
+    return cfg.block_pattern[i % cfg.group_size]
+
+
+def _logical_for(names: Tuple[str, ...], shape, cfg: ModelConfig,
+                 mesh: Mesh) -> Tuple[Optional[str], ...]:
+    name = names[-1]
+    ndim = len(shape)
+
+    if name == "embed":
+        logical = (None, "embed_d")
+    elif name == "lm_head":
+        logical = ("fsdp", "vocab")
+    elif name == "scale":
+        logical = (None,) * ndim
+    elif "mixer" in names or "cross" in names:
+        kind = "attn" if "cross" in names else _layer_kind(names, cfg)
+        table = {"attn": _ATTN_RULES, "mamba": _MAMBA_RULES,
+                 "mlstm": _XLSTM_RULES, "slstm": _XLSTM_RULES}[kind]
+        logical = table.get(name, (None,) * ndim)
+    elif "shared" in names:
+        logical = _DENSE_FFN_RULES.get(name, (None,) * ndim)
+    elif "ffn" in names:
+        if ndim == 3 or name == "router":
+            # experts padded to E: EP when E divides the model axis
+            e_pad = shape[-3] if ndim == 3 else 0
+            model_size = _axis_size(mesh, "expert", axes_mod.DEFAULT_RULES)
+            ep_ok = e_pad > 0 and e_pad % max(model_size, 1) == 0
+            table = _MOE_RULES if ep_ok or name == "router" else _MOE_TP_RULES
+            logical = table.get(name, (None,) * ndim)
+        else:
+            logical = _DENSE_FFN_RULES.get(name, (None,) * ndim)
+    else:
+        logical = (None,) * ndim
+
+    if len(logical) != ndim:
+        logical = (None,) * ndim
+    return logical
+
+
+def param_spec(name: str, shape, cfg: ModelConfig, mesh: Mesh,
+               rules=None) -> tuple:
+    """The spec of the port's parameter ``name`` (``layers.3.mixer.wq``)
+    of ``shape`` on ``mesh``."""
+    rules = rules or axes_mod.DEFAULT_RULES
+    logical = _logical_for(tuple(name.split(".")), shape, cfg, mesh)
+    # shape-validate: drop axes that do not divide the dimension
+    parts = []
+    used = set()
+    for dim, lg in zip(shape, logical):
+        mapped = rules.get(lg) if lg else None
+        if mapped is None:
+            parts.append(None)
+            continue
+        cand = (mapped,) if isinstance(mapped, str) else tuple(mapped)
+        cand = tuple(a for a in cand if a in mesh and a not in used)
+        size = math.prod(mesh[a] for a in cand) if cand else 1
+        if not cand or dim % size != 0:
+            parts.append(None)
+            continue
+        used.update(cand)
+        parts.append(cand[0] if len(cand) == 1 else cand)
+    return tuple(parts)
+
+
+def param_specs(params: Mapping[str, object], cfg: ModelConfig, mesh: Mesh,
+                rules=None) -> Dict[str, tuple]:
+    """Specs of a state dict (or any mapping of names to tensors)."""
+    return {k: param_spec(k, v.shape, cfg, mesh, rules)
+            for k, v in params.items()}
+
+
+def batch_spec(mesh: Mesh, rules=None) -> tuple:
+    rules = rules or axes_mod.DEFAULT_RULES
+    mapped = rules.get("batch")
+    mapped = (mapped,) if isinstance(mapped, str) else tuple(mapped or ())
+    axes = tuple(a for a in mapped if a in mesh)
+    if not axes:
+        return ()
+    return (axes if len(axes) > 1 else axes[0],)
+
+
+def _cache_spec(name: str, shape, b_axes, mesh: Mesh) -> tuple:
+    model_ok = "model" in mesh
+    msize = mesh.get("model", 1)
+    if name in ("pos", "cursor"):
+        return ()
+    if name in ("k", "v", "k_s", "v_s"):    # (B, Hkv, L, Dh|1)
+        if model_ok and shape[1] % msize == 0:
+            return (b_axes, "model", None, None)
+        if model_ok and shape[2] % msize == 0:
+            return (b_axes, None, "model", None)
+        return (b_axes,)
+    if name == "c_kv":                      # (B, L, r)
+        return (b_axes, "model" if model_ok and shape[1] % msize == 0
+                else None, None)
+    if name == "k_rope":                    # (B, 1, L, rd)
+        return (b_axes, None, "model" if model_ok and shape[2] % msize == 0
+                else None, None)
+    if name in ("ssm", "conv"):             # mamba states: d_inner on model
+        din_axis = 1 if name == "ssm" else 2
+        spec = [b_axes] + [None] * (len(shape) - 1)
+        if model_ok and len(shape) > din_axis \
+                and shape[din_axis] % msize == 0:
+            spec[din_axis] = "model"
+        return tuple(spec)
+    return (b_axes,)                        # xLSTM states (B, ...)
+
+
+def cache_specs(cache, cfg: ModelConfig, mesh: Mesh, rules=None):
+    """KV/state cache specs (the reference's ``cache_shardings``): batch
+    over the DP axes, heads/L over model.  ``cache`` is the model's
+    ``Caches`` (one dict a layer); the result is a ``Caches`` of dicts of
+    specs, its ``enc_out`` the encoder output's spec (or ``None``).
+
+    For archs whose KV-head count doesn't divide the model axis, the cache
+    *length* dimension is model-sharded instead (sequence-sharded KV).
+    """
+    bspec = batch_spec(mesh, rules)
+    b_axes = bspec[0] if bspec else None
+    out = Caches({k: _cache_spec(k, getattr(v, "shape", ()), b_axes, mesh)
+                  for k, v in layer.items()} for layer in cache)
+    if getattr(cache, "enc_out", None) is not None:
+        out.enc_out = (b_axes, None, None)  # (B, F, D)
+    return out

@@ -12,8 +12,8 @@ port's shard-axis ones (``core/array_ops.py``)::
 
 The int8 reduce-scatter is one :func:`array_ops.all_to_all` (counted in
 ``EXCHANGES``); the scales and the reduced chunks go through
-:func:`array_ops.allgather`.  Exact when every shard sees identical data
-(q identical); otherwise standard EF convergence applies.
+:func:`array_ops.spmd_allgather`.  Exact when every shard sees identical
+data (q identical); otherwise standard EF convergence applies.
 """
 from __future__ import annotations
 
@@ -48,7 +48,8 @@ def ef_allreduce_mean(x: torch.Tensor, err: torch.Tensor,
     qs, scales = zip(*(_quantize(flat_p[s]) for s in range(n)))
     # stage 1: reduce-scatter in int8 — each shard sums one chunk
     mine = array_ops.all_to_all([q.reshape(n, -1) for q in qs])
-    scale_all = array_ops.allgather(scales)                    # (n,)
+    gather = array_ops.spmd_allgather
+    scale_all = gather(scales, tiled=False)[0]                 # (n,)
     parts = []
     for s in range(n):
         deq = mine[s].to(torch.float32) * scale_all[:, None]   # (n, chunk)
@@ -59,8 +60,8 @@ def ef_allreduce_mean(x: torch.Tensor, err: torch.Tensor,
 
     # stage 2: all-gather the reduced chunks in int8
     q2s, scale2s = zip(*(_quantize(part) for part in parts))
-    full_q = array_ops.allgather(q2s)                          # (n, chunk)
-    scale2_all = array_ops.allgather(scale2s)                  # (n,)
+    full_q = gather(q2s, tiled=False)[0]                       # (n, chunk)
+    scale2_all = gather(scale2s, tiled=False)[0]               # (n,)
     per_chunk = full_q.to(torch.float32) * scale2_all[:, None]
     result = per_chunk.reshape(-1)[:length].reshape(shape)
 

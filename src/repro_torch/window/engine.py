@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.array_ops import allgather
+from ..core.array_ops import spmd_allgather
 from ..core.exchange import order_lanes
 from ..core.table_ops import _bcast
 from ..kernels.window_scan import ops as wops
@@ -165,7 +165,7 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
     # ---- cross-shard carry chain (unbounded lookback) ---------------------
     if distributed:
         def pool(fn):  # per-shard summary → the (n_shards, ...) pool
-            return allgather([fn(x) for x in st])
+            return spmd_allgather([fn(x) for x in st], tiled=False)[0]
 
         head_k = pool(lambda x: x["plane"][0])
         tail_k = pool(lambda x: x["plane"][x["last"]])
@@ -261,17 +261,18 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
     # ---- cumulative: exact carry chain across shards ----------------------
     if distributed and not rolling and st[0]["scan"].shape[1]:
         if n_sum:
-            cv = chain_carries(head_k, tail_k, allgather([
-                torch.where(x["nonempty"], x["sums"][x["last"]], 0.0)
-                for x in st]), whole, ne)
+            cv = chain_carries(head_k, tail_k, pool(
+                lambda x: torch.where(x["nonempty"], x["sums"][x["last"]],
+                                      0.0)), whole, ne)
             for s, x in enumerate(st):
                 x["sums"] = torch.where((x["seg_start"] == 0)[:, None],
                                         x["sums"] + cv[s][None, :],
                                         x["sums"])
         for key in mm_items:
-            cv = chain_carries(head_k, tail_k, allgather([
-                torch.where(x["nonempty"], x["mm_out"][key][x["last"]], 0.0)
-                for x in st]), whole, ne, op=key[1])
+            cv = chain_carries(head_k, tail_k, pool(
+                lambda x, key=key: torch.where(
+                    x["nonempty"], x["mm_out"][key][x["last"]], 0.0)),
+                whole, ne, op=key[1])
             for s, x in enumerate(st):
                 v = x["mm_out"][key]
                 x["mm_out"][key] = torch.where(x["seg_start"] == 0,

@@ -16,10 +16,11 @@ Cross-shard state, for a partition a range layout splits across a shard
 boundary (equal full keys never straddle one, equal partition keys can):
 
   * :func:`tail_halo` / :func:`head_halo` — the last (first) rows of the
-    neighbouring shard, moved with one ``array_ops.ppermute``, so bounded
-    lookback (rolling windows, lag) and lookahead (lead) read across;
+    neighbouring shard, moved with one ``array_ops.spmd_ppermute``, so
+    bounded lookback (rolling windows, lag) and lookahead (lead) read
+    across;
   * :func:`chain_carries` — per-shard boundary summaries pooled with
-    ``array_ops.allgather`` and chained, so unbounded lookback
+    ``array_ops.spmd_allgather`` and chained, so unbounded lookback
     (cumulatives, row_number, rank) adds the contribution of every
     preceding shard of the same partition.
 
@@ -33,7 +34,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from ..core.array_ops import ppermute
+from ..core.array_ops import spmd_ppermute
 # one op table for the whole ordered stack: the carry chain combines
 # exactly like the scans it extends
 from ..kernels.window_scan.ref import _IDENTITY, _combine
@@ -91,9 +92,10 @@ def _send(taken: List[Cols], ok: List[torch.Tensor], perm
     receives zeros, i.e. no valid row."""
     recv = [dict() for _ in taken]
     for name in taken[0]:
-        for s, v in enumerate(ppermute([t[name] for t in taken], perm)):
+        sent = spmd_ppermute([t[name] for t in taken], perm)
+        for s, v in enumerate(sent):
             recv[s][name] = v
-    return recv, ppermute(ok, perm)
+    return recv, spmd_ppermute(ok, perm)
 
 
 def tail_halo(arrays: Sequence[Cols], counts: Sequence[torch.Tensor], h: int

@@ -1,8 +1,8 @@
 """The port's serving slice against the JAX package on the CPU.
 
 Reduced configs (``reduced_config``: 2 layers, 16-dim heads, vocab 128) of
-phi3-mini (MHA), smollm (GQA 3/1, tied embeddings) and phi3 with a
-32-token sliding window.  The JAX parameters (``init_lm``) reach the port
+phi3-mini (MHA), smollm (GQA 3/1, tied embeddings), phi3 with a 32-token
+sliding window, and one 5-layer group of deepseek-67b (GQA 8/1).  The JAX parameters (``init_lm``) reach the port
 through ``params_from_jax``; the same numpy tokens go through both.  In
 float32 every logit and cache entry agrees to 1e-5 (XLA and PyTorch take
 exp, sin and cos and sum in other orders, nothing else differs); in
@@ -35,7 +35,9 @@ from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 TOL = 1e-5
 ARCHS = {"phi3": ("phi3-mini-3.8b", {}),
          "smollm": ("smollm-360m", {}),
-         "phi3_window": ("phi3-mini-3.8b", {"window": 32})}
+         "phi3_window": ("phi3-mini-3.8b", {"window": 32}),
+         # one 5-layer group of deepseek-67b's nineteen, GQA 8:1 kept
+         "deepseek": ("deepseek-67b", {"n_layers": 5})}
 
 
 def _cfgs(arch: str, **over):
@@ -117,7 +119,8 @@ def _jax_steps(jc, cache_len):
 DECODE_CASES = [("phi3", 12, 14, {}), ("smollm", 12, 14, {}),
                 ("phi3_window", 30, 32, {}), ("phi3_window", 40, 32, {}),
                 ("phi3", 12, 16, {"kv_quant": True}),
-                ("smollm", 12, 16, {"kv_quant": True})]
+                ("smollm", 12, 16, {"kv_quant": True}),
+                ("deepseek", 12, 14, {})]
 
 
 @pytest.mark.parametrize("arch,prompt,cache_len,over", DECODE_CASES)
@@ -194,7 +197,7 @@ def test_generate_stops_at_eos_like_jax():
     assert got.shape[1] == list(free[0]).index(eos) + 1
 
 
-@pytest.mark.parametrize("arch", ["phi3", "smollm"])
+@pytest.mark.parametrize("arch", ["phi3", "smollm", "deepseek"])
 def test_bf16_logits_within_model_tolerance(arch):
     jc, params, model = _models(arch, dtype="bfloat16")
     assert model.embed.dtype == torch.bfloat16
