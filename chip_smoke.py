@@ -268,7 +268,31 @@ Phases (every failed check raises; nothing is caught):
    the prefill logits against the plain path's (2e-2 of the largest);
    float32 greedy tokens equal on the SIMT kernel (10 launches) and the
    plain path.  Prints the seconds of phases 27-28 (``array_seconds``);
-29. summary — the script's seconds so far, the ``kernels`` JSON line, the
+29. the table path on a ``torch.distributed`` process group
+   (``repro_torch.launch.mesh``), 4 shards, two legs: (A) a 1-rank NCCL
+   group in this process that holds all 4 shards; (B) 4 ranks, one
+   spawned process each (NCCL with a card a rank where 4 cards exist,
+   else ``gloo`` with every rank on card 0).  Each rank rebuilds phases
+   3-7's data from ``--seed``, keeps its own rows and runs phase 4's main
+   path, phase 5's set ops, phase 7's ordered chain, phase 27a's Table I
+   operators on their 256 MB inputs and MDS at 2^13 points, once checked,
+   then 3 times timed (MDS: the pipeline, its first run checked against
+   its pieces).  Every result is held against the virtual run of its
+   phase shard by shard: each shard's column blocks bit for bit (128-bit
+   blake2b prints of their bits, so no shard moves for the check), its
+   counts, partitioning and overflow — but for the main path's float sums
+   of the segment kernels' atomics (their order of addition varies run to
+   run), which are held against phase 3's float64 oracle as phase 4 holds
+   them, with the share of their blocks bit-equal printed; Table I against
+   the operators rerun on 4 virtual shards, MDS's curated table, points
+   and δ bit for bit and its stress path within ``MDS_LIMITS`` against a
+   virtual run at 2^13 points.  Each rank's exchanges equal the virtual
+   run's (3, 4, 2, 1) and each rank launches hash_partition, the probe,
+   both segment kernels and ``windowed_scan``; the legs' launches join
+   the ``kernels`` line.  Prints one ``group`` line a leg: backend, world,
+   cards, medians and runs, the ``all_to_all`` ms of one packed shuffle
+   frame of the join (with its bytes), each rank's peak GiB and seconds;
+30. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -288,6 +312,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
+import hashlib
 import json
 import os
 import shutil
@@ -3199,6 +3225,352 @@ def mds_phase(dev, seed: int, launches) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the table path on a process group
+# ---------------------------------------------------------------------------
+GROUP_WORLD = 4
+GROUP_TIMEOUT_S = 900
+#: MDS on the group legs: 2^13 points keep 4 ranks' δ (256 MB each) and
+#: SMACOF buffers small on one card
+MDS_GROUP = {"n": 1 << 13, "dim": 3, "iters": 100}
+#: float lanes of the main path made by the segment kernels' float
+#: atomics, whose order of addition varies from run to run (phase 17):
+#: held against the float64 oracle as phase 4 holds them; every other
+#: lane, count, layout and overflow bit for bit
+ATOMIC_SUMS = {"g": ("v_sum", "v_mean", "w_sum"), "k": ("v_sum",)}
+#: the Table I operators whose results are row-sharded
+SHARDED_OUT = ("alltoall", "reduce_scatter", "scatter", "gather", "reduce")
+
+
+def digest(t: torch.Tensor) -> str:
+    """A tensor's bits, hashed (blake2b, 128 bits)."""
+    a = np.ascontiguousarray(t.detach().cpu().numpy())
+    return hashlib.blake2b(a.reshape(-1).view(np.uint8),
+                           digest_size=16).hexdigest()
+
+
+def shard_prints(res: dict, first: int) -> dict:
+    """A chain's results as per-shard prints: each DataFrame's column
+    blocks hashed shard by shard (global shard ids from ``first``), its
+    counts, partitioning and overflow; each array whole.  Nothing moves
+    between ranks: the shards are compared where they are."""
+    out = {}
+    for name, v in res.items():
+        if hasattr(v, "table"):
+            dt = v.table
+            out[name] = {
+                "cols": {k: {first + i: digest(b)
+                             for i, b in enumerate(c.unbind(0))}
+                         for k, c in dt.columns.items()},
+                "counts": {first + i: n
+                           for i, n in enumerate(dt.counts.tolist())},
+                "part": repr(dt.partitioning),
+                "report": sorted(dict(v.overflow_report).items())}
+        elif isinstance(v, np.ndarray):
+            out[name] = v
+    return out
+
+
+def merge_prints(per_rank: list) -> dict:
+    """One chain's prints of every rank, merged by shard; arrays must be
+    the same on every rank."""
+    out = {}
+    for p in per_rank:
+        for name, v in p.items():
+            if isinstance(v, np.ndarray):
+                if name in out:
+                    check(np.array_equal(bits_np(out[name]), bits_np(v)),
+                          f"{name}: the same on every rank")
+                out[name] = v
+                continue
+            m = out.setdefault(name, {"cols": {}, "counts": {},
+                                      "part": v["part"],
+                                      "report": v["report"]})
+            check((m["part"], m["report"]) == (v["part"], v["report"]),
+                  f"{name}: layout and overflow the same on every rank")
+            m["counts"].update(v["counts"])
+            for k, d in v["cols"].items():
+                m["cols"].setdefault(k, {}).update(d)
+    return out
+
+
+def compare_prints(got: dict, want: dict, tag: str, atomic=None) -> dict:
+    """Bit for bit: every shard's blocks, counts, layout and overflow;
+    ``atomic[name]`` columns only reported — the share of their shard
+    blocks whose bits equal the virtual run's."""
+    check(sorted(got) == sorted(want),
+          f"{tag}: results {sorted(got)} / {sorted(want)}")
+    same = {}
+    for name, w in want.items():
+        g, what = got[name], f"{tag} {name}"
+        if isinstance(w, np.ndarray):
+            check(g.dtype == w.dtype and np.array_equal(bits_np(g),
+                                                         bits_np(w)), what)
+            continue
+        for key in ("counts", "part", "report"):
+            check(g[key] == w[key], f"{what} {key}: {g[key]} / {w[key]}")
+        check(sorted(g["cols"]) == sorted(w["cols"]), f"{what} columns")
+        for k, wd in w["cols"].items():
+            if k in (atomic or {}).get(name, ()):
+                same[f"{name}.{k}"] = float(np.mean(
+                    [g["cols"][k][s] == d for s, d in wd.items()]))
+            else:
+                check(g["cols"][k] == wd, f"{what} {k}: bit for bit")
+    return same
+
+
+def whole_rows(df) -> dict:
+    """A DataFrame's valid rows on the host (a collective on a group)."""
+    return {k: v.cpu().numpy() for k, v in df.table.valid_rows().items()}
+
+
+def collective_prints(ctx, dev, seed: int) -> dict:
+    """Phase 27a's operators on ``ctx``: this process's rows of the 256 MB
+    inputs in; a replicated result hashed whole, a row-sharded one shard
+    block by shard block."""
+    from repro_torch.core import array_ops
+
+    rng = np.random.default_rng(seed + 27)
+    inputs = {shape: rng.standard_normal(shape, dtype=np.float32)
+              for shape in (COLL_SHAPE, COLL_A2A_SHAPE)}
+    out = {}
+    for name, kw in COLLECTIVES:
+        x = inputs[COLL_A2A_SHAPE if name == "alltoall" else COLL_SHAPE]
+        b = x.shape[0] // ctx.n_shards
+        lo = ctx.local_shards.start * b
+        mine = x if name in ("reduce_scatter", "scatter") \
+            else x[lo:lo + ctx.n_local * b]
+        got = getattr(array_ops, name)(torch.from_numpy(mine).to(dev),
+                                       ctx=ctx, **kw)
+        key = name + "".join(f" {k}={v}" for k, v in kw.items())
+        if name in SHARDED_OUT:
+            out[key] = {ctx.local_shards.start + i: digest(blk) for i, blk
+                        in enumerate(got.tensor_split(ctx.n_local))}
+        else:
+            out[key] = {"whole": digest(got)}
+        del got
+    return out
+
+
+def wall_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mds_prints(ctx, seed: int) -> tuple:
+    """MDS at :data:`MDS_GROUP`'s size on ``ctx``, in pieces: the curated
+    table's prints, δ's digest, the points, stress path and embedding."""
+    from repro_torch.apps import mds
+
+    n, dim, iters = MDS_GROUP["n"], MDS_GROUP["dim"], MDS_GROUP["iters"]
+    curated = mds.curated_table(n, ctx, seed)
+    points = curated.to_torch(mds.FEATURES)
+    delta = mds.distance_matrix(points, ctx)
+    path, x = mds.smacof(delta, dim, iters, seed)
+    out = shard_prints({"curated": curated}, ctx.local_shards.start)
+    out.update(points=points.cpu().numpy(), path=np.asarray(path),
+               x=x.cpu().numpy())
+    return out, digest(delta)
+
+
+def group_rank(ctx, seed: int, want_ex: dict) -> dict:
+    """One rank of phase 29: phases 4, 5, 7 and 27a's chains at full size
+    and MDS at 2^13 points on ``ctx``'s group.  Each chain runs once
+    checked, then 3 times timed; returns the rank's prints of the checked
+    results, launches, exchanges and times."""
+    from repro_torch.apps import mds
+    from repro_torch.core import array_ops, table_ops
+    from repro_torch.dataframe import DataFrame
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = ctx.device
+    first = ctx.local_shards.start
+    torch.cuda.reset_peak_memory_stats()
+    left, right, sets = make_data(seed)
+    events = make_events(seed)
+    launches = Launches()
+    prints, exchanges, runs = {}, {}, {}
+
+    def checked(tag, fn):
+        launches.reset()
+        res = fn()
+        _, exchanges[tag] = launches.read()
+        check(exchanges[tag] == want_ex[tag],
+              f"rank {ctx.rank} {tag}: {exchanges[tag]} exchanges, the "
+              f"virtual run made {want_ex[tag]}")
+        return res
+
+    res = checked("main", lambda: main_path(DataFrame, ctx, left, right,
+                                            2.0))
+    prints["main"] = shard_prints(res, first)
+    # the atomic sums' tables whole, for the float64 oracle
+    prints["main_sums"] = {"g": whole_rows(res["g"]),
+                           "k": whole_rows(res["k"])}
+    del res
+    runs["main"] = timed_runs(lambda: main_path(DataFrame, ctx, left, right,
+                                                2.0))
+    res = checked("setops", lambda: set_ops(DataFrame, ctx, sets))
+    prints["setops"] = shard_prints(res, first)
+    del res
+    runs["setops"] = timed_runs(lambda: set_ops(DataFrame, ctx, sets))
+    res = checked("ordered", lambda: ordered_path(DataFrame, ctx, events,
+                                                  2.0, launches.sorts))
+    check(res["win_sorts"] == 0 and res["q_sorts"] == 0,
+          f"rank {ctx.rank}: the windows and the exact quantile sorted")
+    prints["ordered"] = shard_prints(res, first)
+    del res
+    runs["ordered"] = timed_runs(lambda: ordered_path(
+        DataFrame, ctx, events, 2.0, launches.sorts))
+    prints["collectives"] = collective_prints(ctx, dev, seed)
+
+    n, dim, iters = MDS_GROUP["n"], MDS_GROUP["dim"], MDS_GROUP["iters"]
+    prints["mds"], prints["mds_delta"] = checked(
+        "mds", lambda: mds_prints(ctx, seed))
+    pipe, _ = mds.mds_pipeline(n, dim, iters, ctx, seed)
+    check(np.array_equal(pipe, prints["mds"]["path"]),
+          f"rank {ctx.rank}: the mds pipeline's path is its pieces'")
+    runs["mds"] = timed_runs(lambda: mds.mds_pipeline(n, dim, iters, ctx,
+                                                      seed))
+
+    # one packed shuffle frame of the main path's join (the left side:
+    # k, g, v and the carried h1, h2 lanes; 2x head-room buckets)
+    cap = 2 * LEFT_ROWS // ctx.n_shards
+    bucket = table_ops._bucket_capacity(cap, ctx.n_shards, 2.0)
+    frames = [torch.ones((ctx.n_shards, bucket + 1, 5), dtype=torch.int32,
+                         device=dev) for _ in range(ctx.n_local)]
+    a2a = [wall_s(lambda: array_ops.all_to_all(frames, ctx.group))
+           for _ in range(4)][1:]
+    del frames
+    return {"rank": ctx.rank, "prints": prints, "launches": launches.total,
+            "exchanges": exchanges,
+            "median_s": {k: statistics.median(v) for k, v in runs.items()},
+            "runs_s": runs, "a2a_ms": statistics.median(a2a) * 1e3,
+            "a2a_bytes": ctx.n_local * ctx.n_shards * (bucket + 1) * 5 * 4,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_start}
+
+
+def check_group_sums(sums: dict, oracle, tag: str) -> None:
+    """The group's atomic sums against the float64 oracle, as phase 4
+    holds the virtual run's."""
+    check_groupby_g(sums["g"], oracle, tag)
+    k = sums["k"]
+    order = np.argsort(k["k"], kind="stable")
+    o = oracle["k"]
+    check(np.array_equal(k["k"][order], o["k"]), f"{tag}: groupby k keys")
+    check_close(k["v_sum"][order], o["v_sum"], o["v_abs"], f"{tag}: k v_sum")
+
+
+def check_group_leg(tag: str, ranks: list, ref: dict, oracle, dev,
+                    seed: int) -> dict:
+    """Hold a leg's prints against the virtual phases': phases 4, 5 and 7's
+    kept prints, phase 27a's operators and MDS rerun here on 4 virtual
+    shards."""
+    from repro_torch.core import HPTMTContext
+
+    ctx4 = HPTMTContext(n_shards=4, device="cuda")
+    same = {}
+    for chain in ("main", "setops", "ordered"):
+        got = merge_prints([r["prints"][chain] for r in ranks])
+        same.update(compare_prints(got, ref[chain], f"{tag} {chain}",
+                                   ATOMIC_SUMS if chain == "main" else None))
+    check_group_sums(ranks[0]["prints"]["main_sums"], oracle,
+                     f"{tag} main path")
+    want = collective_prints(ctx4, dev, seed)
+    got = {}
+    for r in ranks:
+        for key, d in r["prints"]["collectives"].items():
+            if "whole" in d:
+                check(got.setdefault(key, d) == d, f"{tag} {key}: "
+                      f"replicated, the same on every rank")
+            else:
+                got.setdefault(key, {}).update(d)
+    for key, w in want.items():
+        check(got[key] == w, f"{tag} {key}: bit for bit against 4 virtual "
+              f"shards")
+    want, want_delta = mds_prints(ctx4, seed)
+    got = merge_prints([r["prints"]["mds"] for r in ranks])
+    for r in ranks:
+        check(r["prints"]["mds_delta"] == want_delta,
+              f"{tag} mds rank {r['rank']}: δ bit for bit")
+    path, x = got.pop("path"), got.pop("x")
+    wpath, wx = want.pop("path"), want.pop("x")
+    compare_prints(got, want, f"{tag} mds")
+    same["mds_path"] = float(np.mean(bits_np(path) == bits_np(wpath)))
+    same["mds_x"] = float(np.mean(bits_np(x) == bits_np(wx)))
+    dpath = float(np.abs(path - wpath).max() / wpath[0])
+    check(dpath <= MDS_LIMITS["paths_1v4"],
+          f"{tag} mds: stress path against 4 virtual shards {dpath}")
+    same["mds_path_max_rel"] = dpath
+    return same
+
+
+def group_phase(ref, oracle, dev, seed: int, launches) -> list:
+    """Phase 29: leg A on a 1-rank NCCL group in this process, leg B on
+    4 ranks (NCCL with a card a rank where 4 exist, else gloo, every rank
+    on card 0); returns the legs' ``group`` lines."""
+    import torch.distributed as dist
+
+    from repro_torch.core import HPTMTContext
+    from repro_torch.launch.mesh import run_ranks
+
+    want_ex = dict(ref["exchanges"], mds=1)
+    n_cards = torch.cuda.device_count()
+    lines = []
+    for tag, backend, world in (
+            ("A", "nccl", 1),
+            ("B", "nccl" if n_cards >= GROUP_WORLD else "gloo",
+             GROUP_WORLD)):
+        t0 = time.perf_counter()
+        if world == 1:
+            with tempfile.TemporaryDirectory(prefix="hptmt_group_") as tmp:
+                dist.init_process_group(
+                    backend, rank=0, world_size=1,
+                    store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                    timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+                try:
+                    ranks = [group_rank(HPTMTContext(
+                        n_shards=4, device="cuda:0", group=dist.group.WORLD),
+                        seed, want_ex)]
+                finally:
+                    dist.destroy_process_group()
+        else:
+            ranks = run_ranks(group_rank, world, backend, "cuda", n_shards=4,
+                              args=(seed, want_ex),
+                              timeout_s=GROUP_TIMEOUT_S)
+        leg_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        same = check_group_leg(f"group leg {tag}", ranks, ref, oracle, dev,
+                               seed)
+        for r in ranks:
+            for k in ("hash_partition", "probe", "segment_reduce_fused",
+                      "segment_reduce", "windowed_scan"):
+                check(r["launches"][k] > 0,
+                      f"leg {tag} rank {r['rank']} launched {k}")
+            for k, n in r["launches"].items():
+                launches.total[k] += n
+        lines.append({
+            "leg": tag, "backend": backend, "world": world,
+            "cards": min(world, n_cards), "n_shards": 4,
+            "median_s": ranks[0]["median_s"], "runs_s": ranks[0]["runs_s"],
+            "rank_median_s": [r["median_s"] for r in ranks],
+            "exchanges": ranks[0]["exchanges"],
+            "launches": [r["launches"] for r in ranks],
+            "a2a_ms": [r["a2a_ms"] for r in ranks],
+            "a2a_bytes": ranks[0]["a2a_bytes"],
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "rank_seconds": [r["seconds"] for r in ranks],
+            "seconds": leg_s,
+            "check_seconds": time.perf_counter() - t0 - leg_s,
+            "atomic_sums_bit_equal": same})
+        torch.cuda.empty_cache()
+    return lines
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3308,6 +3680,7 @@ def main() -> int:
     for key in ("g", "v_count", "v_min", "v_max"):
         check(np.array_equal(g1[key], g4[key]), f"4-shard groupby {key}")
     peak4 = torch.cuda.max_memory_allocated() / 2**30
+    ref_main = shard_prints(res4, 0)  # held against phase 29's groups
     del res4, j4
     runs4 = timed_runs(lambda: main_path(DataFrame, ctx4, left, right, 2.0))
     if args.profile:
@@ -3328,6 +3701,7 @@ def main() -> int:
     check(np.array_equal(d, np.sort(keep)), "difference rows")
     check(np.array_equal(np.unique(d), np.setdiff1d(sets["a"], sets["b"])),
           "difference vs setdiff1d")
+    ref_setops = shard_prints(res5, 0)
     del res5
     runs5 = timed_runs(lambda: set_ops(DataFrame, ctx4, sets))
     if args.profile:
@@ -3373,7 +3747,10 @@ def main() -> int:
                 check(np.array_equal(v, w4[name][k]),
                       f"4-shard {name} {k} equals 1 shard")
     peak7 = torch.cuda.max_memory_allocated() / 2**30
-    del res7, w1, w4
+    group_ref = {"main": ref_main, "setops": ref_setops,
+                 "ordered": shard_prints(res7, 0),
+                 "exchanges": {"main": ex4, "setops": ex5, "ordered": ex7}}
+    del res7, w1, w4, ref_main, ref_setops
     runs7 = timed_runs(lambda: ordered_path(DataFrame, ctx4, events, 2.0,
                                             launches.sorts))
     if args.profile:
@@ -3476,7 +3853,15 @@ def main() -> int:
     array_s["deepseek"] = time.perf_counter() - t0
     emit("array_seconds", total=sum(array_s.values()), **array_s)
 
-    # 29. summary
+    # 29. the table path on a process group: 1 rank (NCCL), then 4 ranks
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    for line in group_phase(group_ref, oracle, dev, args.seed, launches):
+        emit("group", **line)
+    del group_ref
+    emit("group_seconds", total=time.perf_counter() - t0)
+
+    # 30. summary
     kernels = []
     for r in krows:
         name = r["name"]

@@ -10,7 +10,11 @@ Ports ``src/repro/apps/mds.py``, the HPTMT pattern end to end:
      (AllGather of the point blocks — Table I; :func:`distance_matrix`)
      and run SMACOF iterations (:func:`smacof`) — the MPI side of Fig 14.
 
-Same code runs on one shard or on ``n_shards`` virtual shards.  The
+Same code runs on one shard, on ``n_shards`` virtual shards, or on a
+process group, where each rank computes the δ row blocks of its own
+shards, as the reference's ``shard_map`` block does, and δ is then
+all-gathered so that SMACOF runs on the whole of it on every rank, as
+the reference's runs outside its ``shard_map``.  The
 arithmetic is the reference's: distances ``sqrt(max(|x|² + |y|² - 2x·y,
 1e-12))``, δ and the ratio matrix masked on the diagonal, the Guttman
 step ``b @ x / n``, the stress taken before the update.  At a card's size
@@ -130,15 +134,19 @@ def distance_matrix(points: torch.Tensor, ctx: HPTMTContext
     """δ, row-partitioned: on ``n_shards > 1`` the points are padded with
     zero rows to a multiple of the shard count, each shard computes the
     distances from its block to the all-gather of every block, and the
-    row blocks are stacked and cut to ``(n, n)``."""
+    row blocks are stacked and cut to ``(n, n)``.  On a group ``points``
+    is the whole point set on every rank; each rank computes its shards'
+    row blocks and the blocks are all-gathered, so every rank returns the
+    whole δ."""
     n, p = points.shape[0], ctx.n_shards
     if p == 1:
         return _pairwise_dist(points, points)
     pts = F.pad(points, (0, 0, 0, (-n) % p))
-    blocks = list(pts.tensor_split(p))
-    everyone = spmd_allgather(blocks)
-    delta = torch.cat([_pairwise_dist(mine, all_pts)
-                       for mine, all_pts in zip(blocks, everyone)])
+    mine = list(pts.tensor_split(p))[ctx.local_shards.start:
+                                     ctx.local_shards.stop]
+    everyone = spmd_allgather(mine, group=ctx.group)
+    rows = [_pairwise_dist(m, all_pts) for m, all_pts in zip(mine, everyone)]
+    delta = spmd_allgather(rows, group=ctx.group)[0]
     return delta[:n, :n]
 
 

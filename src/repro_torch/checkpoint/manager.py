@@ -43,7 +43,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.context import DeviceLike, resolve_device
+from ..core.context import DeviceLike, refuse_in_group, resolve_device
 
 
 class CheckpointIntegrityError(ValueError):
@@ -126,6 +126,7 @@ def _save_npy(path: str, t: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 class CheckpointManager:
     def __init__(self, directory: str, async_save: bool = False):
+        refuse_in_group("the checkpoint manager", "11c")
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self._pool = (concurrent.futures.ThreadPoolExecutor(max_workers=1)

@@ -47,6 +47,7 @@ class TSet:
     """A lazy, chunked, distributed dataset (Twister2 TSet analogue)."""
 
     def __init__(self, node: _Node, ctx: HPTMTContext):
+        ctx.require_virtual("the TSet dataflow", "11c")
         self._node = node
         self._ctx = ctx
         self._last_report: Optional[OverflowReport] = None

@@ -23,11 +23,13 @@ sort of the port (:func:`lex_order`, counted by ``array_ops.SORTS``), and
 the sample-sort exchange :func:`range_shuffle`, which rides the same
 single packed all-to-all.
 
-Shards are virtual (``core/context.py``): a function that moves rows
-between shards takes one entry per shard and runs each shard's local
-phase in a loop around the one collective.  A single-entry call is the
+A function that moves rows between shards takes one entry per shard —
+per virtual shard, or per shard this rank holds when ``group=`` names a
+process group (``core/context.py``) — and runs each shard's local phase
+in a loop around the one collective.  Whether rows move is decided on
+the GLOBAL shard count: a single-entry call without a group is the
 reference's ``axis=None`` case — no exchange, the local buckets are the
-result.
+result — while a rank of a group that holds one shard still exchanges.
 
 uint32 lanes are held as int32 tensors with the same bits (``core/table.py``).
 Overflow is counted and the excess rows dropped, never corrupted.
@@ -39,7 +41,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .array_ops import SORTS, all_to_all, spmd_allgather
+from .array_ops import SORTS, all_to_all, shard_span, spmd_allgather
 
 Cols = Dict[str, torch.Tensor]
 
@@ -181,14 +183,15 @@ def _histogram(dest: torch.Tensor, n_parts: int) -> torch.Tensor:
 # ===========================================================================
 def exchange_rows(cols: Sequence[Cols], dest: Sequence[torch.Tensor],
                   n_shards: int, bucket: int,
-                  hist: Optional[Sequence[torch.Tensor]] = None):
+                  hist: Optional[Sequence[torch.Tensor]] = None, *,
+                  group=None):
     """Bucket each shard's rows by destination and exchange them in ONE
     all-to-all.
 
     ``cols[s]``/``dest[s]``/``hist[s]`` are shard ``s``'s columns, row
     destinations (``>= n_shards`` for invalid rows) and per-destination
     valid-row histogram (recomputed when not supplied).  With a single
-    entry nothing is exchanged: the local buckets come back.
+    entry and no group nothing is exchanged: the local buckets come back.
 
     Frame layout: per destination, ``bucket`` packed data rows followed by
     one metadata row whose lane 0 holds the send count — so counts ride the
@@ -198,8 +201,9 @@ def exchange_rows(cols: Sequence[Cols], dest: Sequence[torch.Tensor],
     one entry per shard.
     """
     n_local = len(cols)
-    if n_local not in (1, n_shards):
-        raise ValueError(f"{n_local} shard inputs for {n_shards} shards")
+    n_global = shard_span(cols, group)[0]
+    if n_global not in (1, n_shards):
+        raise ValueError(f"{n_global} shard inputs for {n_shards} shards")
     frames, sent_all, overflow, specs = [], [], [], None
     for s in range(n_local):
         d = dest[s]
@@ -220,8 +224,8 @@ def exchange_rows(cols: Sequence[Cols], dest: Sequence[torch.Tensor],
         frames.append(torch.cat([buf.reshape(n_shards, bucket, width), meta],
                                 dim=1))
 
-    if n_local > 1:
-        received = all_to_all(frames)
+    if n_global > 1:
+        received = all_to_all(frames, group)
         recv_cnt = [r[:, bucket, 0] for r in received]
     else:
         received, recv_cnt = frames, sent_all
@@ -237,7 +241,8 @@ def exchange_rows(cols: Sequence[Cols], dest: Sequence[torch.Tensor],
 
 def hash_shuffle(cols: Sequence[Cols], counts: Sequence[torch.Tensor],
                  key_names: Sequence[str], n_shards: int, bucket: int,
-                 out_capacity: int, *, carry_hashes: bool = False):
+                 out_capacity: int, *, carry_hashes: bool = False,
+                 group=None):
     """Hash-partition + packed exchange + compaction, over all shards.
 
     Destinations and the send histograms come from the ``hash_partition``
@@ -269,7 +274,7 @@ def hash_shuffle(cols: Sequence[Cols], counts: Sequence[torch.Tensor],
         dests.append(dest)
         hists.append(hist)
     bufs, valid, ov_send = exchange_rows(sends, dests, n_shards, bucket,
-                                         hist=hists)
+                                         hist=hists, group=group)
     out, new_counts, overflow = [], [], []
     for b, v, o in zip(bufs, valid, ov_send):
         cols_s, n, ov_recv = compact_rows(b, v, out_capacity)
@@ -368,7 +373,7 @@ def _lex_leq(splitters: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
 
 def range_splitters(lanes: Sequence[torch.Tensor],
                     masks: Sequence[torch.Tensor], n_shards: int,
-                    n_samples: int) -> torch.Tensor:
+                    n_samples: int, *, group=None) -> torch.Tensor:
     """Per-shard regular sampling + all-gather → ``n_shards - 1``
     splitters (``(n_shards - 1, L)`` lanes).
 
@@ -385,7 +390,7 @@ def range_splitters(lanes: Sequence[torch.Tensor],
             torch.arange(n_samples, device=ln.device) * stride,
             torch.clamp(count - 1, min=0))
         samples.append(torch.where((sidx < count)[:, None], ln[sidx], _M32))
-    sample = spmd_allgather(samples)[0]
+    sample = spmd_allgather(samples, group=group)[0]
     sample = sample[lex_order(sample, None)]
     total = sample.shape[0]
     spos = (torch.arange(1, n_shards, device=sample.device) * total) \
@@ -396,7 +401,8 @@ def range_splitters(lanes: Sequence[torch.Tensor],
 def range_shuffle(cols: Sequence[Cols], counts: Sequence[torch.Tensor],
                   key_names: Sequence[str], ascending: Sequence[bool],
                   n_shards: int, bucket: int, out_capacity: int, *,
-                  n_samples: int = 64, sort_local: bool = True):
+                  n_samples: int = 64, sort_local: bool = True,
+                  group=None):
     """Sample-sort range partitioning + packed exchange (+ local sort).
 
     Destinations come from a lexicographic compare against sampled
@@ -414,10 +420,12 @@ def range_shuffle(cols: Sequence[Cols], counts: Sequence[torch.Tensor],
                           device=n.device) < n for c, n in zip(cols, counts)]
     lanes = [order_lanes(c, key_names, ascending) for c in cols]
     if n_shards > 1:
-        splitters = range_splitters(lanes, masks, n_shards, n_samples)
+        splitters = range_splitters(lanes, masks, n_shards, n_samples,
+                                    group=group)
         dests = [torch.where(m, _lex_leq(splitters, ln).sum(0), n_shards)
                  for ln, m in zip(lanes, masks)]
-        bufs, valid, ov_send = exchange_rows(cols, dests, n_shards, bucket)
+        bufs, valid, ov_send = exchange_rows(cols, dests, n_shards, bucket,
+                                             group=group)
         out, new_counts, overflow = [], [], []
         for b, v, o in zip(bufs, valid, ov_send):
             c, n, o2 = compact_rows(b, v, out_capacity)
@@ -485,7 +493,7 @@ def strip_hidden(cols: Cols) -> Cols:
 # ===========================================================================
 def exchange_rows_reference(cols: Sequence[Cols],
                             dest: Sequence[torch.Tensor], n_shards: int,
-                            bucket: int):
+                            bucket: int, *, group=None):
     """The per-column argsort exchange, kept as a test oracle.
 
     One all-to-all per column plus a count side-channel; bucketing via
@@ -494,6 +502,7 @@ def exchange_rows_reference(cols: Sequence[Cols],
     ``(bufs, valid, overflow)``, one entry per shard.
     """
     n_local = len(cols)
+    n_global = shard_span(cols, group)[0]
     sends, sent_all, overflow = [], [], []
     for c, d in zip(cols, dest):
         capacity = d.shape[0]
@@ -511,11 +520,11 @@ def exchange_rows_reference(cols: Sequence[Cols],
         sends.append({k: _scatter_rows(v[order], slot, n_shards * bucket)
                       for k, v in c.items()})
 
-    if n_local > 1:
-        recv_cnt = all_to_all(sent_all)
+    if n_global > 1:
+        recv_cnt = all_to_all(sent_all, group)
         per_col = {k: all_to_all([s[k].reshape((n_shards, bucket)
                                                + tuple(s[k].shape[1:]))
-                                  for s in sends])
+                                  for s in sends], group)
                    for k in sends[0]}
         bufs = [{k: per_col[k][r].reshape((n_shards * bucket,)
                                           + tuple(per_col[k][r].shape[2:]))

@@ -9,7 +9,9 @@ An Arrow-style struct-of-arrays table with a static shape:
 
 ``Table`` is a single-shard (local) table; :class:`DistTable` is the
 row-partitioned form.  Its columns are ``(n_shards, capacity, ...)``
-blocks on one device — virtual shards as a leading dimension.
+blocks on one device — virtual shards as a leading dimension — or, on a
+process group (``core/context.py``), the ``(n_local, capacity, ...)``
+blocks of the shards this rank holds.
 
 Numeric inputs narrow the way the JAX package narrows them with 64-bit
 mode off (:func:`as_tensor`): int64 → int32, uint64 → uint32, float64 →
@@ -27,7 +29,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .context import DeviceLike, HPTMTContext, resolve_device
+from .array_ops import spmd_allgather
+from .context import DeviceLike, HPTMTContext, group_size, resolve_device
 
 Columns = Dict[str, torch.Tensor]
 
@@ -227,10 +230,15 @@ def partitioning_ascending(part: Partitioning) -> Tuple[bool, ...]:
 class DistTable:
     """Row-partitioned table: ``n_shards`` blocks of ``capacity`` rows each.
 
-    ``columns[k]`` has shape ``(n_shards, capacity, ...)`` on one device;
-    ``counts`` has shape ``(n_shards,)`` giving each shard's valid-row
-    count.  Shard ``i``'s block is a plain :class:`Table`
-    (:meth:`shard_table`).
+    ``columns[k]`` has shape ``(n_local, capacity, ...)`` and ``counts``
+    shape ``(n_local,)``, each shard's valid-row count.  Without a
+    ``group`` every shard is here (``n_local == n_shards``, one device);
+    on a process group of ``world`` ranks these are the blocks of the
+    ``n_local = n_shards // world`` shards this rank holds, and the
+    methods that return the whole table (:meth:`valid_rows`,
+    :meth:`to_numpy`, :meth:`to_numpy_blocks`, :meth:`to_local`) are
+    collectives every rank must call.  Local shard ``i``'s block is a
+    plain :class:`Table` (:meth:`shard_table`).
 
     ``partitioning`` records how rows were assigned to shards:
     ``(hash_keys, n_shards)`` after a hash exchange on ``hash_keys``,
@@ -242,16 +250,23 @@ class DistTable:
     """
 
     def __init__(self, columns: Columns, counts,
-                 partitioning: Partitioning = None):
+                 partitioning: Partitioning = None, group=None):
         self.columns = dict(columns)
         dev = next(iter(self.columns.values())).device
         self.counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
         self.partitioning = partitioning
+        self.group = group
 
     # -- properties ----------------------------------------------------------
     @property
-    def n_shards(self) -> int:
+    def n_local(self) -> int:
+        """Shards whose blocks this table holds."""
         return self.counts.shape[0]
+
+    @property
+    def n_shards(self) -> int:
+        """The global shard count."""
+        return self.n_local * group_size(self.group)
 
     @property
     def capacity(self) -> int:
@@ -266,34 +281,62 @@ class DistTable:
         return self.counts.device
 
     def num_rows(self) -> torch.Tensor:
-        return self.counts.sum()
+        """Valid rows of the whole table (a collective on a group)."""
+        return self._every_count().sum()
+
+    def _every_count(self) -> torch.Tensor:
+        """Every shard's row count, in global shard order."""
+        if self.group is None:
+            return self.counts
+        return spmd_allgather(list(self.counts.unbind(0)), tiled=False,
+                              group=self.group)[0]
+
+    def _every_block(self) -> Columns:
+        """Every shard's column blocks, ``(n_shards, capacity, ...)``."""
+        if self.group is None:
+            return self.columns
+        return {k: spmd_allgather(list(v.unbind(0)), tiled=False,
+                                  group=self.group)[0]
+                for k, v in self.columns.items()}
 
     # -- construction ----------------------------------------------------------
     @classmethod
     def from_local(cls, table: Table, ctx: HPTMTContext,
-                   capacity: Optional[int] = None) -> "DistTable":
-        """Block-partition a local table's valid rows across shards."""
-        p = ctx.n_shards
+                   capacity: Optional[int] = None, *,
+                   total_rows: Optional[int] = None,
+                   first_row: int = 0) -> "DistTable":
+        """Block-partition a local table's valid rows across shards.
+
+        On a group each rank keeps the blocks of its own shards: it passes
+        the whole table, or — with ``total_rows``, the whole table's row
+        count — only rows ``first_row ..`` of it, which must cover the
+        rows its shards hold."""
+        p, nl, first = ctx.n_shards, ctx.n_local, ctx.local_shards.start
         dev = ctx.device
-        n = table.num_rows.to(dev, torch.int64)
+        if total_rows is None:
+            n, whole = table.num_rows.to(dev, torch.int64), table.capacity
+        else:
+            n = torch.tensor(total_rows, dtype=torch.int64, device=dev)
+            whole = total_rows
         per = (n + p - 1) // p  # rows per shard (last may be short)
-        cap = capacity or -(-table.capacity // p)
+        cap = capacity or -(-whole // p)
         # row r goes to shard r // per at slot r % per
-        idx = torch.arange(p * cap, dtype=torch.int64, device=dev)
-        shard, slot = idx // cap, idx % cap
+        idx = torch.arange(nl * cap, dtype=torch.int64, device=dev)
+        shard, slot = first + idx // cap, idx % cap
         src = shard * per + slot
         valid = (slot < per) & (src < n)
-        src = torch.where(valid, src, 0)
+        src = torch.where(valid, src - first_row, 0)
+        counts = n - torch.arange(first, first + nl, dtype=torch.int64,
+                                  device=dev) * per
         cols = {}
         for k, v in table.columns.items():
-            g = v.to(dev)[src]
+            g = _pad_axis0(v.to(dev), max(v.shape[0], 1))[src]
             m = valid.reshape((-1,) + (1,) * (g.dim() - 1))
             cols[k] = torch.where(m, g, torch.zeros_like(g)).reshape(
-                (p, cap) + tuple(v.shape[1:]))
-        counts = n - torch.arange(p, dtype=torch.int64, device=dev) * per
+                (nl, cap) + tuple(v.shape[1:]))
         counts = torch.minimum(torch.clamp(counts, min=0), per)
         counts = torch.clamp(counts, max=cap).to(torch.int32)
-        return cls(cols, counts)
+        return cls(cols, counts, group=ctx.group)
 
     @classmethod
     def from_shard_tables(cls, tables: Sequence[Table], ctx: HPTMTContext,
@@ -304,6 +347,7 @@ class DistTable:
         ``i``'s block (padded to the common capacity).  ``partitioning`` is
         attached verbatim, so callers assert the layout evidence truthfully.
         """
+        ctx.require_virtual("DistTable.from_shard_tables", "11c")
         if len(tables) != ctx.n_shards:
             raise ValueError(f"{len(tables)} shard tables for a "
                              f"{ctx.n_shards}-shard context")
@@ -323,32 +367,40 @@ class DistTable:
     @classmethod
     def from_numpy_blocks(cls, columns: Dict[str, np.ndarray], counts,
                           partitioning: Partitioning = None,
-                          device: DeviceLike = None) -> "DistTable":
+                          device: DeviceLike = None,
+                          ctx: Optional[HPTMTContext] = None) -> "DistTable":
         """Adopt a reference ``DistTable``'s arrays, given as numpy.
 
         ``columns[k]`` is the global ``(n_shards * capacity, ...)`` array;
         ``counts`` the per-shard row counts.  The partitioning metadata is
         taken verbatim, so a state that already proves co-location carries
-        over.
+        over.  With ``ctx`` the blocks go to its device, and on its group
+        each rank copies only the blocks of its own shards.
         """
         counts = np.asarray(counts, np.int32)
         p = counts.shape[0]
+        group, mine = None, slice(None)
+        if ctx is not None:
+            device, group = ctx.device, ctx.group
+            mine = slice(ctx.local_shards.start, ctx.local_shards.stop)
         dev = resolve_device(device)
         cols = {}
         for k, v in columns.items():
             a = np.asarray(v)
-            cols[k] = as_tensor(a.reshape((p, a.shape[0] // p) + a.shape[1:]),
-                                dev)
-        return cls(cols, torch.tensor(counts, device=dev), partitioning)
+            cols[k] = as_tensor(
+                a.reshape((p, a.shape[0] // p) + a.shape[1:])[mine], dev)
+        return cls(cols, torch.tensor(counts[mine], device=dev),
+                   partitioning, group)
 
     def to_numpy_blocks(self) -> Tuple[Dict[str, np.ndarray], np.ndarray,
                                        Partitioning]:
         """Inverse of :meth:`from_numpy_blocks`: global column arrays,
-        counts and partitioning."""
+        counts and partitioning (a collective on a group: every rank
+        gets the whole table)."""
         p, c = self.n_shards, self.capacity
         cols = {k: v.reshape((p * c,) + tuple(v.shape[2:])).cpu().numpy()
-                for k, v in self.columns.items()}
-        return cols, self.counts.cpu().numpy(), self.partitioning
+                for k, v in self._every_block().items()}
+        return cols, self._every_count().cpu().numpy(), self.partitioning
 
     # -- conversion ----------------------------------------------------------
     def shard_table(self, i: int) -> Table:
@@ -356,31 +408,36 @@ class DistTable:
                      self.counts[i])
 
     def shards(self) -> Tuple[list, list]:
-        """Per-shard ``(columns, count)`` lists — the operators' loop form."""
+        """Per-local-shard ``(columns, count)`` lists — the operators' loop
+        form."""
         cols = [{k: v[i] for k, v in self.columns.items()}
-                for i in range(self.n_shards)]
+                for i in range(self.n_local)]
         return cols, list(self.counts.unbind(0))
 
     @classmethod
     def from_shards(cls, cols: Sequence[Columns], counts: Sequence,
-                    partitioning: Partitioning = None) -> "DistTable":
+                    partitioning: Partitioning = None,
+                    group=None) -> "DistTable":
         """Stack per-shard outputs of equal capacity (see :meth:`shards`)."""
         stacked = {k: torch.stack([c[k] for c in cols]) for k in cols[0]}
         return cls(stacked, torch.stack([torch.as_tensor(n).reshape(())
-                                         for n in counts]), partitioning)
+                                         for n in counts]), partitioning,
+                   group)
 
     def valid_rows(self) -> Columns:
         """Every shard's valid rows, concatenated in shard order, on the
-        table's device."""
-        counts = self.counts.tolist()
+        table's device (a collective on a group: every rank gets them
+        all)."""
+        counts = self._every_count().tolist()
         return {name: torch.cat([v[i, :counts[i]]
                                  for i in range(self.n_shards)])
-                for name, v in self.columns.items()}
+                for name, v in self._every_block().items()}
 
     def to_local(self) -> Table:
         """Gather all shards into one compacted local table."""
         cols = self.valid_rows()
-        return Table.from_arrays(cols, num_rows=int(self.counts.sum()),
+        return Table.from_arrays(cols,
+                                 num_rows=next(iter(cols.values())).shape[0],
                                  capacity=self.capacity * self.n_shards)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:

@@ -2,10 +2,16 @@
 
 The hash half of the reference's operators, on PyTorch tensors.  Every
 distributed operator is local columnar work plus the bucket-exchange
-**shuffle** built on the array all-to-all.  Shards are virtual
-(``core/context.py``): each operator runs its per-shard phases in a loop
-over the shards, and the phases meet at the exchange choke point
-(``core/exchange.py:hash_shuffle`` → ``core/array_ops.py:all_to_all``).
+**shuffle** built on the array all-to-all.  Each operator runs its
+per-shard phases in a loop over the shards this process holds — every
+shard when they are virtual, the rank's own on a process group
+(``core/context.py``) — and the phases meet at the exchange choke point
+(``core/exchange.py:hash_shuffle`` → ``core/array_ops.py:all_to_all``),
+with ``ctx.group`` passed down to every collective.  On a group every
+branch that precedes a collective is decided by values all ranks share
+(static sizes or gathered values), so the ranks call the same
+collectives in the same order; shard ids in roots and permutations are
+global.
 The reference's per-shard functions (``_join_impl``, ``_groupby_impl``,
 ``_setop_impl``) are split at their ``hash_shuffle`` call.
 
@@ -100,9 +106,10 @@ def shuffle(dt: DistTable, keys: Sequence[str], *, ctx: HPTMTContext,
     out, new_counts, overflow = hash_shuffle(
         cols, counts, tuple(keys), n,
         _bucket_capacity(dt.capacity, n, bucket_factor),
-        out_capacity or dt.capacity)
-    return (DistTable.from_shards(out, new_counts, (tuple(keys), n)),
-            spmd_allreduce(overflow)[0])
+        out_capacity or dt.capacity, group=ctx.group)
+    return (DistTable.from_shards(out, new_counts, (tuple(keys), n),
+                                  ctx.group),
+            spmd_allreduce(overflow, group=ctx.group)[0])
 
 
 # ===========================================================================
@@ -120,7 +127,7 @@ def select(dt: DistTable, predicate: Callable[[Cols], torch.Tensor], *,
         outs.append(out)
         counts.append(n)
     # rows never change shards: the partitioning layout survives filtering
-    return DistTable.from_shards(outs, counts, dt.partitioning)
+    return DistTable.from_shards(outs, counts, dt.partitioning, ctx.group)
 
 
 @operator("table.project", Abstraction.TABLE, distributed=False)
@@ -134,7 +141,8 @@ def project(dt: DistTable, columns: Sequence[str], *,
     part = dt.partitioning
     if part is not None and not set(partitioning_keys(part)) <= set(columns):
         part = None
-    return DistTable({k: dt.columns[k] for k in columns}, dt.counts, part)
+    return DistTable({k: dt.columns[k] for k in columns}, dt.counts, part,
+                     ctx.group)
 
 
 # ===========================================================================
@@ -193,9 +201,10 @@ def orderby(dt: DistTable, by, *, ctx: HPTMTContext,
     out, new_counts, overflow = range_shuffle(
         cols, counts, keys, asc, n,
         _bucket_capacity(dt.capacity, n, bucket_factor),
-        out_capacity or dt.capacity, n_samples=min(n_samples, dt.capacity))
-    return (DistTable.from_shards(out, new_counts, part),
-            spmd_allreduce(overflow)[0])
+        out_capacity or dt.capacity, n_samples=min(n_samples, dt.capacity),
+        group=ctx.group)
+    return (DistTable.from_shards(out, new_counts, part, ctx.group),
+            spmd_allreduce(overflow, group=ctx.group)[0])
 
 
 @operator("table.local_sort", Abstraction.TABLE)
@@ -221,8 +230,8 @@ def local_sort(dt: DistTable, by, *, ctx: HPTMTContext, ascending=True,
         order = lex_order(order_lanes(cols, keys, asc),
                           _mask_for(count, _cap(cols)))
         outs.append({k: v[order] for k, v in cols.items()})
-    return DistTable.from_shards(outs, dt.counts.unbind(0), part), \
-        _zero(dt.device)
+    return DistTable.from_shards(outs, dt.counts.unbind(0), part,
+                                 ctx.group), _zero(dt.device)
 
 
 # ===========================================================================
@@ -279,13 +288,14 @@ def window_aggregate(dt: DistTable, partition_by, order_by, aggs, *,
         cols, counts, ov = range_shuffle(
             cols, counts, keys, asc, n,
             _bucket_capacity(dt.capacity, n, bucket_factor), dt.capacity,
-            n_samples=min(n_samples, dt.capacity))
+            n_samples=min(n_samples, dt.capacity), group=ctx.group)
     new_cols, o = eval_window(cols, counts, pkeys=pkeys, okeys=okeys,
                               ascending=asc, aggs=norm, rows=rows,
-                              n_shards=n)
+                              n_shards=n, group=ctx.group)
     outs = [dict(c, **nc) for c, nc in zip(cols, new_cols)]
-    return (DistTable.from_shards(outs, counts, part),
-            spmd_allreduce([a + b for a, b in zip(ov, o)])[0])
+    return (DistTable.from_shards(outs, counts, part, ctx.group),
+            spmd_allreduce([a + b for a, b in zip(ov, o)],
+                           group=ctx.group)[0])
 
 
 def rank(dt: DistTable, partition_by, order_by, *, ctx: HPTMTContext,
@@ -326,7 +336,8 @@ def topk(dt: DistTable, by, k: int, *, ctx: HPTMTContext,
     if ascending is None:
         ascending = not largest
     keys, asc = _normalize_order(by, ascending, dt.column_names, "by")
-    n = ctx.n_shards
+    n, g = ctx.n_shards, ctx.group
+    first = ctx.local_shards.start
     k = min(k, dt.capacity)
     cand, ccnt = [], []
     for cols, count in zip(*dt.shards()):
@@ -336,12 +347,15 @@ def topk(dt: DistTable, by, k: int, *, ctx: HPTMTContext,
     for t in range(max(n - 1, 0).bit_length()):
         step = 1 << t
         perm = [(s + step, s) for s in range(0, n - step, 2 * step)]
-        recv = {name: spmd_ppermute([c[name] for c in cand], perm)
+        recv = {name: spmd_ppermute([c[name] for c in cand], perm, group=g)
                 for name in cand[0]}
-        rcnt = spmd_ppermute(ccnt, perm)
+        rcnt = spmd_ppermute(ccnt, perm, group=g)
         # only receivers merge: a shard that receives nothing would merge
         # with zero valid rows and keep its candidates
         for _, s in perm:
+            if s not in ctx.local_shards:
+                continue
+            s -= first
             merged = {name: torch.cat([v, recv[name][s]])
                       for name, v in cand[s].items()}
             j = torch.arange(k, device=dt.device)
@@ -349,15 +363,18 @@ def topk(dt: DistTable, by, k: int, *, ctx: HPTMTContext,
                 merged, torch.cat([j < ccnt[s], j < rcnt[s]]), keys, asc, k)
             ccnt[s] = torch.clamp(ccnt[s] + rcnt[s], max=k)
     if n > 1:
+        # the result lands on shard 0; every other shard is emptied
         keep = torch.arange(k, device=dt.device) < ccnt[0]
-        cand = [{name: _bcast(keep, v) for name, v in cand[0].items()}] + [
-            {name: torch.zeros_like(v) for name, v in cand[0].items()}
-            for _ in range(n - 1)]
-        ccnt = [ccnt[0]] + [torch.zeros_like(ccnt[0])] * (n - 1)
-    return DistTable.from_shards(cand, ccnt, range_partitioning(keys, asc, n))
+        zero = {name: torch.zeros_like(v) for name, v in cand[0].items()}
+        cand = [({name: _bcast(keep, v) for name, v in cand[0].items()}
+                 if first + i == 0 else zero) for i in range(len(cand))]
+        ccnt = [ccnt[0] if first + i == 0 else torch.zeros_like(ccnt[0])
+                for i in range(len(ccnt))]
+    return DistTable.from_shards(cand, ccnt, range_partitioning(keys, asc, n),
+                                 g)
 
 
-def _quantile_approx(cols, counts, column, qarr, n_samples):
+def _quantile_approx(cols, counts, column, qarr, n_samples, group):
     """Splitter-style sketch: quantiles of a pooled per-shard regular
     sample of the non-NaN values; no exchange."""
     samples, nvals = [], []
@@ -373,8 +390,8 @@ def _quantile_approx(cols, counts, column, qarr, n_samples):
         ok = sidx < scnt
         samples.append(torch.where(ok, svals["v"][sidx], float("inf")))
         nvals.append(ok.sum(dtype=torch.int32))
-    sample = spmd_allgather(samples)[0]
-    nval = spmd_allreduce(nvals)[0]
+    sample = spmd_allgather(samples, group=group)[0]
+    nval = spmd_allreduce(nvals, group=group)[0]
     sample = sample[lex_order([sample], None)]  # invalid (+inf) sort last
     t = qarr * torch.clamp(nval - 1, min=0).to(torch.float32)
     lo, hi = torch.floor(t).to(torch.int64), torch.ceil(t).to(torch.int64)
@@ -385,7 +402,7 @@ def _quantile_approx(cols, counts, column, qarr, n_samples):
     return torch.where(nval > 0, out, float("nan"))
 
 
-def _quantile_exact(cols, counts, column, qarr, sort_ov):
+def _quantile_exact(cols, counts, column, qarr, sort_ov, group, first):
     """Order statistics off a range layout sorted ascending on ``column``:
     rank → shard arithmetic and one masked all-reduce per boundary."""
     vals, nns = [], []
@@ -394,7 +411,7 @@ def _quantile_exact(cols, counts, column, qarr, sort_ov):
         vals.append(col)
         nns.append((_mask_for(count, col.shape[0])
                     & ~torch.isnan(col)).sum(dtype=torch.int32))
-    nn_all = spmd_allgather(nns, tiled=False)[0]
+    nn_all = spmd_allgather(nns, tiled=False, group=group)[0]
     offsets = torch.cumsum(nn_all, 0) - nn_all
     total = nn_all.sum()
     t = qarr * torch.clamp(total - 1, min=0).to(torch.float32)
@@ -403,17 +420,18 @@ def _quantile_exact(cols, counts, column, qarr, sort_ov):
     def fetch(g):  # global rank → value, via one masked all-reduce
         parts = []
         for s, col in enumerate(vals):
-            local = g - offsets[s]
+            local = g - offsets[first + s]
             have = (local >= 0) & (local < nns[s])
             parts.append(torch.where(
                 have, col[torch.clamp(local, 0, col.shape[0] - 1)], 0.0))
-        return spmd_allreduce(parts)[0]
+        return spmd_allreduce(parts, group=group)[0]
 
     vlo, vhi = fetch(lo), fetch(hi)
     out = vlo + (t - lo.to(torch.float32)) * (vhi - vlo)
     # a skew-overflowed internal sort dropped rows: poison, never mislead
-    return torch.where((total > 0) & (spmd_allreduce(sort_ov)[0] == 0),
-                       out, float("nan"))
+    return torch.where(
+        (total > 0) & (spmd_allreduce(sort_ov, group=group)[0] == 0),
+        out, float("nan"))
 
 
 @operator("table.quantile", Abstraction.TABLE)
@@ -462,14 +480,16 @@ def quantile(dt: DistTable, column: str, qs, *, ctx: HPTMTContext,
     cols, counts = dt.shards()
     n_samples = min(n_samples, dt.capacity)
     if method == "approx":
-        return _quantile_approx(cols, counts, column, qarr, n_samples)
+        return _quantile_approx(cols, counts, column, qarr, n_samples,
+                                ctx.group)
     sort_ov = [_zero(dt.device) for _ in cols]
     if not sorted_on_col:
         cols, counts, sort_ov = range_shuffle(
             cols, counts, (column,), (True,), n,
             _bucket_capacity(dt.capacity, n, bucket_factor), dt.capacity,
-            n_samples=n_samples)
-    return _quantile_exact(cols, counts, column, qarr, sort_ov)
+            n_samples=n_samples, group=ctx.group)
+    return _quantile_exact(cols, counts, column, qarr, sort_ov, ctx.group,
+                           ctx.local_shards.start)
 
 
 # ===========================================================================
@@ -681,18 +701,18 @@ def _local_hash_join(lcols: Cols, ln, rcols: Cols, rn, *, keys, how,
     return out, torch.clamp(total, max=out_capacity), overflow
 
 
-def _shuffle_side(cols, counts, ov, keys, n_shards, bucket, mid_cap):
+def _shuffle_side(cols, counts, ov, keys, n_shards, bucket, mid_cap, group):
     """Hash-shuffle one input of a binary operator, carrying ``(h1, h2)``
     so its local phase never rehashes; adds the overflow to ``ov``."""
     cols, counts, o = hash_shuffle(cols, counts, keys, n_shards, bucket,
-                                   mid_cap, carry_hashes=True)
+                                   mid_cap, carry_hashes=True, group=group)
     return cols, counts, [a + b for a, b in zip(ov, o)]
 
 
 def _join_impl(lc: List[Cols], lcnt, rc: List[Cols], rcnt, *, keys, how,
                method, max_matches, window, max_probes, n_shards, lbucket,
                rbucket, mid_cap_l, mid_cap_r, out_capacity, shuffle_left,
-               shuffle_right):
+               shuffle_right, group):
     ov = [_zero(c.device) for c in lcnt]
     if n_shards > 1:
         # co-locate equal keys.  A side whose partitioning metadata already
@@ -700,10 +720,10 @@ def _join_impl(lc: List[Cols], lcnt, rc: List[Cols], rcnt, *, keys, how,
         # locally by take_hashes.
         if shuffle_left:
             lc, lcnt, ov = _shuffle_side(lc, lcnt, ov, keys, n_shards,
-                                         lbucket, mid_cap_l)
+                                         lbucket, mid_cap_l, group)
         if shuffle_right:
             rc, rcnt, ov = _shuffle_side(rc, rcnt, ov, keys, n_shards,
-                                         rbucket, mid_cap_r)
+                                         rbucket, mid_cap_r, group)
     outs, counts = [], []
     for s in range(len(lc)):
         if method == "hash":
@@ -719,7 +739,7 @@ def _join_impl(lc: List[Cols], lcnt, rc: List[Cols], rcnt, *, keys, how,
         outs.append(out)
         counts.append(cnt)
         ov[s] = ov[s] + o
-    return outs, counts, spmd_allreduce(ov)[0]
+    return outs, counts, spmd_allreduce(ov, group=group)[0]
 
 
 @operator("table.join", Abstraction.TABLE)
@@ -774,8 +794,9 @@ def join(left: DistTable, right: DistTable, keys: Sequence[str], *,
         mid_cap_l=mid_l, mid_cap_r=mid_r,
         out_capacity=out_capacity or default_out,
         shuffle_left=not _partitioned_on(left, keys, ctx),
-        shuffle_right=not _partitioned_on(right, keys, ctx))
-    return DistTable.from_shards(outs, counts, (tuple(keys), n)), overflow
+        shuffle_right=not _partitioned_on(right, keys, ctx), group=ctx.group)
+    return (DistTable.from_shards(outs, counts, (tuple(keys), n), ctx.group),
+            overflow)
 
 
 # ===========================================================================
@@ -988,7 +1009,7 @@ def _local_groupby_all(cols, counts, **kw):
 
 def _groupby_impl(cols, counts, *, keys, aggs, n_shards, bucket,
                   mid_capacity, out_capacity, elide, combine, partial_cap,
-                  combine_bucket, method):
+                  combine_bucket, method, group):
     if n_shards > 1 and not elide:
         if combine:
             # map-side combine: pre-aggregate locally so only distinct
@@ -999,25 +1020,25 @@ def _groupby_impl(cols, counts, *, keys, aggs, n_shards, bucket,
                 out_capacity=partial_cap, method=method)
             pcols, pcount, o = hash_shuffle(
                 pcols, pcount, keys, n_shards, combine_bucket,
-                n_shards * combine_bucket)
+                n_shards * combine_bucket, group=group)
             out, n_seg, o2 = _local_groupby_all(
                 pcols, pcount, keys=keys, aggs=merge_aggs,
                 out_capacity=out_capacity, method=method)
             out = [finalize_agg_cols(c, aggs, merge_aggs) for c in out]
-            ov = ov + o + o2
+            ov = [a + b + c for a, b, c in zip(ov, o, o2)]
         else:
             cols, counts, o = hash_shuffle(cols, counts, keys, n_shards,
-                                           bucket, mid_capacity)
+                                           bucket, mid_capacity, group=group)
             out, n_seg, o2 = _local_groupby_all(
                 cols, counts, keys=keys, aggs=aggs,
                 out_capacity=out_capacity, method=method)
-            ov = o + o2
+            ov = [a + b for a, b in zip(o, o2)]
     else:
         # single shard, or rows already co-located on the keys: no exchange
         out, n_seg, ov = _local_groupby_all(
             cols, counts, keys=keys, aggs=aggs, out_capacity=out_capacity,
             method=method)
-    return out, n_seg, spmd_allreduce(ov)[0]
+    return out, n_seg, spmd_allreduce(ov, group=group)[0]
 
 
 @operator("table.groupby", Abstraction.TABLE)
@@ -1065,8 +1086,9 @@ def groupby_aggregate(dt: DistTable, keys: Sequence[str],
         elide=_partitioned_on(dt, keys, ctx), combine=do_combine,
         partial_cap=partial_cap,
         combine_bucket=_bucket_capacity(partial_cap, n, bucket_factor),
-        method=method)
-    return DistTable.from_shards(outs, n_seg, (tuple(keys), n)), overflow
+        method=method, group=ctx.group)
+    return (DistTable.from_shards(outs, n_seg, (tuple(keys), n), ctx.group),
+            overflow)
 
 
 @operator("table.aggregate", Abstraction.TABLE)
@@ -1094,13 +1116,14 @@ def aggregate(dt: DistTable, column: str, op: str, *, ctx: HPTMTContext):
             seg = torch.where(mask, 0, -1).to(torch.int32)
             vals.append(segops.segment_reduce(col, seg, 1, op)[0])
     if op in ("min", "max"):
-        v = torch.stack(vals)
+        v = spmd_allgather(vals, tiled=False, group=ctx.group)[0]
         return segops.segment_reduce(
             v, torch.zeros(v.shape, dtype=torch.int32, device=v.device), 1,
             op)[0]
-    v = spmd_allreduce(vals)[0]
+    v = spmd_allreduce(vals, group=ctx.group)[0]
     if op == "mean":
-        v = v / torch.clamp(spmd_allreduce(rows)[0], min=1.0)
+        v = v / torch.clamp(spmd_allreduce(rows, group=ctx.group)[0],
+                            min=1.0)
     return v
 
 
@@ -1182,17 +1205,18 @@ def _local_setop(acols: Cols, an, bcols: Cols, bn, *, kind, names,
 
 
 def _setop_impl(ac, acnt, bc, bcnt, *, kind, names, n_shards, abucket,
-                bbucket, mid_a, mid_b, out_capacity, shuffle_a, shuffle_b):
+                bbucket, mid_a, mid_b, out_capacity, shuffle_a, shuffle_b,
+                group):
     ov = [_zero(c.device) for c in acnt]
     if n_shards > 1:
         # sides whose metadata proves co-location on the full schema skip
         # their exchange
         if shuffle_a:
             ac, acnt, ov = _shuffle_side(ac, acnt, ov, names, n_shards,
-                                         abucket, mid_a)
+                                         abucket, mid_a, group)
         if shuffle_b:
             bc, bcnt, ov = _shuffle_side(bc, bcnt, ov, names, n_shards,
-                                         bbucket, mid_b)
+                                         bbucket, mid_b, group)
     outs, counts = [], []
     for s in range(len(ac)):
         out, cnt, o = _local_setop(ac[s], acnt[s], bc[s], bcnt[s], kind=kind,
@@ -1200,7 +1224,7 @@ def _setop_impl(ac, acnt, bc, bcnt, *, kind, names, n_shards, abucket,
         outs.append(out)
         counts.append(cnt)
         ov[s] = ov[s] + o
-    return outs, counts, spmd_allreduce(ov)[0]
+    return outs, counts, spmd_allreduce(ov, group=group)[0]
 
 
 def _make_setop(kind: str, opname: str, doc: str):
@@ -1224,9 +1248,10 @@ def _make_setop(kind: str, opname: str, doc: str):
             mid_a=a.capacity, mid_b=b.capacity,
             out_capacity=out_capacity or default_out,
             shuffle_a=not _partitioned_on(a, names, ctx),
-            shuffle_b=not _partitioned_on(b, names, ctx))
+            shuffle_b=not _partitioned_on(b, names, ctx), group=ctx.group)
         # output rows keep the shard their full-row hash assigned
-        return DistTable.from_shards(outs, counts, (names, n)), overflow
+        return (DistTable.from_shards(outs, counts, (names, n), ctx.group),
+                overflow)
 
     op.__doc__ = doc
     op.__name__ = kind
@@ -1257,9 +1282,9 @@ def cartesian(a: DistTable, b: DistTable, *, ctx: HPTMTContext,
     bcols, bcnt = b.shards()
     acap, bcap = a.capacity, b.capacity
     # the all-gather moves whole blocks, not rows by key: no exchange
-    bg_cols = {k: spmd_allgather([c[k] for c in bcols])[0]
+    bg_cols = {k: spmd_allgather([c[k] for c in bcols], group=ctx.group)[0]
                for k in bcols[0]}
-    bns = spmd_allgather(bcnt, tiled=False)[0]
+    bns = spmd_allgather(bcnt, tiled=False, group=ctx.group)[0]
     bg = bns.shape[0] * bcap
     dev = bns.device
     pos = torch.arange(bg, device=dev)
@@ -1274,4 +1299,4 @@ def cartesian(a: DistTable, b: DistTable, *, ctx: HPTMTContext,
         out, cnt, _ = compact_rows(out, keep, out_capacity or acap * bg)
         outs.append(out)
         counts.append(cnt)
-    return DistTable.from_shards(outs, counts)
+    return DistTable.from_shards(outs, counts, group=ctx.group)

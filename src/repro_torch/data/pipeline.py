@@ -139,6 +139,7 @@ def make_training_data(cfg: ModelConfig, ctx: HPTMTContext, batch: int,
     ``data_root`` — from an on-disk dataset corpus through the storage
     scan.  Encoder-decoder and VLM configs get stub frontend embeddings,
     ``0.02 * normal`` float32, as the reference makes them."""
+    ctx.require_virtual("the training data pipeline", "11b")
     ccfg = ccfg or CorpusConfig(vocab_size=cfg.vocab_size)
     corpus = (disk_corpus(data_root, ctx) if data_root is not None
               else synthetic_corpus(ccfg, ctx))

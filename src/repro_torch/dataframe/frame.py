@@ -86,6 +86,10 @@ class DataFrame:
         exact ``ceil(rows / n_shards)`` default) so that a *later* shuffle
         has head-room for hash skew.  A ``capacity``/``bucket_factor`` too
         small to hold the input rows is rejected here.
+
+        On a process group every rank passes the same global ``data`` (the
+        reference's global view); each slices the rows of its own shards
+        on the host and copies only those to its device.
         """
         lengths = {k: np.shape(v)[0] if np.ndim(v) else 0
                    for k, v in data.items()}
@@ -97,15 +101,23 @@ class DataFrame:
             raise ValueError(
                 f"ragged column lengths: {ragged} vs {common} rows in the "
                 f"other column(s) — every column must have the same length")
-        cols = {k: as_tensor(v, ctx.device) for k, v in data.items()}
-        t = Table.from_arrays(cols)
-        per = math.ceil(
-            (capacity or -(-t.capacity // ctx.n_shards)) * bucket_factor)
-        if per * ctx.n_shards < t.capacity:
+        n = next(iter(lengths.values()), 0)
+        per = math.ceil((capacity or -(-n // ctx.n_shards)) * bucket_factor)
+        if per * ctx.n_shards < n:
             raise ValueError(
                 f"per-shard capacity {per} x {ctx.n_shards} shards cannot "
-                f"hold {t.capacity} rows — raise capacity or bucket_factor")
-        return cls(DistTable.from_local(t, ctx, capacity=per), ctx)
+                f"hold {n} rows — raise capacity or bucket_factor")
+        if ctx.group is None:
+            t = Table.from_arrays({k: as_tensor(v, ctx.device)
+                                   for k, v in data.items()})
+            return cls(DistTable.from_local(t, ctx, capacity=per), ctx)
+        rows = -(-n // ctx.n_shards)  # rows a shard (the last may be short)
+        lo = min(ctx.local_shards.start * rows, n)
+        hi = min(ctx.local_shards.stop * rows, n)
+        t = Table.from_arrays({k: as_tensor(v[lo:hi], ctx.device)
+                               for k, v in data.items()})
+        return cls(DistTable.from_local(t, ctx, capacity=per, total_rows=n,
+                                        first_row=lo), ctx)
 
     # -- storage & Arrow interop (repro_torch.io) -------------------------
     @classmethod

@@ -175,6 +175,7 @@ def write_dist_table(dt: DistTable, root: str, *, ctx,
     a matching context re-enters the partitioned world without moving a
     row.
     """
+    ctx.require_virtual("dataset writes", "11c")
     from ..core import table_ops
 
     overflow = 0

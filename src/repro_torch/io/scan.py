@@ -158,6 +158,7 @@ class ScanSource:
                  bucket_factor: float = 1.0,
                  allow_narrowing: bool = False,
                  on_error: str = "raise", policy=None):
+        ctx.require_virtual("dataset scans", "11c")
         if on_error not in ("raise", "quarantine"):
             raise ValueError(f"on_error={on_error!r}; expected 'raise' "
                              f"or 'quarantine'")

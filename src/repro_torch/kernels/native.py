@@ -183,7 +183,19 @@ def on_cuda(t: torch.Tensor) -> bool:
 
 
 def stream(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as the raw handle."""
+    """PyTorch's current stream on ``device``, as the raw handle.
+
+    The C entry points launch on the CURRENT CUDA device, whatever device
+    the stream belongs to, so a tensor on another card raises here,
+    before the launch, instead of handing a kernel that card's pointers
+    (a rank that never called ``torch.cuda.set_device`` would launch on
+    card 0)."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index != current:
+        raise RuntimeError(
+            f"kernel inputs are on cuda:{index} but the current CUDA device "
+            f"is cuda:{current}: call torch.cuda.set_device({index}) first")
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -18,8 +18,11 @@ import time
 import numpy as np
 import torch
 
+from ..core.context import refuse_in_group
+
 
 def main(argv=None):
+    refuse_in_group("the serving launcher", "11b")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")

@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import argparse
 
+from ..core.context import refuse_in_group
+
 
 def main(argv=None):
+    refuse_in_group("the training launcher", "11b")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mesh", default="1x1",

@@ -53,11 +53,13 @@ def chrome_trace_events(collector) -> List[Dict[str, Any]]:
         nonlocal end_ts
         tid = _lane(span.name)
         used_lanes.add(tid)
-        end_ts = max(end_ts, span.t0_us + span.dur_us)
+        ts, dur = round(span.t0_us, 3), round(span.dur_us, 3)
+        # the end of the event as written (a sum of the rounded times can
+        # exceed the rounded sum by an ulp)
+        end_ts = max(end_ts, ts + dur)
         events.append({
             "name": span.name, "ph": "X", "cat": "repro",
-            "ts": round(span.t0_us, 3), "dur": round(span.dur_us, 3),
-            "pid": 0, "tid": tid,
+            "ts": ts, "dur": dur, "pid": 0, "tid": tid,
             "args": {k: _jsonable(v) for k, v in span.attrs.items()},
         })
         for c in span.children:
@@ -78,7 +80,7 @@ def chrome_trace_events(collector) -> List[Dict[str, Any]]:
 
     counters = [{
         "name": gname, "ph": "C", "cat": "repro", "pid": 0, "tid": 0,
-        "ts": round(end_ts, 3), "args": {"value": _jsonable(v)}}
+        "ts": end_ts, "args": {"value": _jsonable(v)}}
         for gname, v in sorted(collector.metrics.gauges.items())]
     return meta + events + counters
 

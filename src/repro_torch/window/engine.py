@@ -25,9 +25,10 @@ same-partition rows than the lookback; for lead, the successor's head ran
 out while the partition could not be proven to end).  Truncated windows
 are counted, never silently wrong: zero overflow certifies the result.
 
-Shards are virtual (``core/context.py``): :func:`eval_window` takes one
-entry per shard and runs each phase over the shards around the
-collectives.
+:func:`eval_window` takes one entry per shard this process holds — every
+shard when they are virtual, the rank's own on a process group
+(``core/context.py``) — and runs each phase over them around the
+collectives; the pooled summaries are indexed by global shard id.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.array_ops import spmd_allgather
+from ..core.array_ops import shard_span, spmd_allgather
 from ..core.exchange import order_lanes
 from ..core.table_ops import _bcast
 from ..kernels.window_scan import ops as wops
@@ -115,7 +116,8 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 
 def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
                 pkeys, okeys, ascending, aggs, rows: Optional[int],
-                n_shards: int) -> Tuple[List[Cols], List[torch.Tensor]]:
+                n_shards: int, group=None
+                ) -> Tuple[List[Cols], List[torch.Tensor]]:
     """Evaluate normalized window ``aggs`` over sorted shard columns.
 
     ``cols[s]``/``counts[s]`` are shard ``s``'s columns and valid-row
@@ -123,6 +125,7 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
     input columns are untouched (a window never moves or drops rows).
     """
     p = len(cols)
+    first = shard_span(cols, group)[1]  # global id of local shard 0
     cap = next(iter(cols[0].values())).shape[0]
     dev = counts[0].device
     idx = torch.arange(cap, device=dev)
@@ -165,7 +168,8 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
     # ---- cross-shard carry chain (unbounded lookback) ---------------------
     if distributed:
         def pool(fn):  # per-shard summary → the (n_shards, ...) pool
-            return spmd_allgather([fn(x) for x in st], tiled=False)[0]
+            return spmd_allgather([fn(x) for x in st], tiled=False,
+                                  group=group)[0]
 
         head_k = pool(lambda x: x["plane"][0])
         tail_k = pool(lambda x: x["plane"][x["last"]])
@@ -186,9 +190,9 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
                  & (x["run_start"][x["last"]] == 0)), ne) \
             if need_rank else None
         for s, x in enumerate(st):
-            x["carry_cnt"] = cc[s]
+            x["carry_cnt"] = cc[first + s]
             if need_rank:
-                x["carry_run"] = cr[s]
+                x["carry_run"] = cr[first + s]
 
     out: List[Cols] = [{} for _ in range(p)]
     overflow = [torch.zeros((), dtype=torch.int32, device=dev)
@@ -206,7 +210,7 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
             a.setdefault(f"lag:{col}", c[col])
         arrays.append(a)
     if h > 0:
-        halo, halo_ok = tail_halo(arrays, counts, h)
+        halo, halo_ok = tail_halo(arrays, counts, h, group)
     else:
         halo = [{k: v[:0] for k, v in a.items()} for a in arrays]
         halo_ok = [torch.zeros(0, dtype=torch.bool, device=dev)] * p
@@ -266,7 +270,7 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
                                       0.0)), whole, ne)
             for s, x in enumerate(st):
                 x["sums"] = torch.where((x["seg_start"] == 0)[:, None],
-                                        x["sums"] + cv[s][None, :],
+                                        x["sums"] + cv[first + s][None, :],
                                         x["sums"])
         for key in mm_items:
             cv = chain_carries(head_k, tail_k, pool(
@@ -275,8 +279,9 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
                 whole, ne, op=key[1])
             for s, x in enumerate(st):
                 v = x["mm_out"][key]
-                x["mm_out"][key] = torch.where(x["seg_start"] == 0,
-                                               _combine(key[1], v, cv[s]), v)
+                x["mm_out"][key] = torch.where(
+                    x["seg_start"] == 0, _combine(key[1], v, cv[first + s]),
+                    v)
 
     # ---- leads: forward halo, dynamic gather across the boundary ----------
     if leads:
@@ -287,7 +292,7 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
             for _, col, _ in leads:
                 a.setdefault(f"lead:{col}", c[col])
             arrays.append(a)
-        fhalo, fok = head_halo(arrays, counts, kmax)
+        fhalo, fok = head_halo(arrays, counts, kmax, group)
         for s, (c, x) in enumerate(zip(cols, st)):
             # same-partition prefix of the forward halo, per local row: the
             # chain breaks at the first invalid or different-key halo row
@@ -321,7 +326,7 @@ def eval_window(cols: Sequence[Cols], counts: Sequence[torch.Tensor], *,
                 # later shard still holds rows — otherwise the table
                 # provably ends and every lead is exact
                 in_tail_seg = seg_start == seg_start[x["last"]]
-                later_ne = ne[s + 1:].any()
+                later_ne = ne[first + s + 1:].any()
                 need_f = torch.clamp(idx + kmax - (count - 1), min=0)
                 trunc = (x["mask"] & in_tail_seg & (need_f > avail_f)
                          & ~ended).sum()

@@ -25,8 +25,9 @@ boundary (equal full keys never straddle one, equal partition keys can):
     preceding shard of the same partition.
 
 Neither goes through ``array_ops.all_to_all``: a window on a range layout
-adds no exchange.  Shards are virtual (``core/context.py``): the halo and
-carry functions take one entry per shard.
+adds no exchange.  The halo and carry functions take one entry per shard
+this process holds — every shard when they are virtual, the rank's own
+with ``group=`` (``core/context.py``); halo pairs are global shard ids.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from ..core.array_ops import spmd_ppermute
+from ..core.array_ops import shard_span, spmd_ppermute
 # one op table for the whole ordered stack: the carry chain combines
 # exactly like the scans it extends
 from ..kernels.window_scan.ref import _IDENTITY, _combine
@@ -85,21 +86,21 @@ def _take(arrays: Cols, src: torch.Tensor, ok: torch.Tensor) -> Cols:
     return out
 
 
-def _send(taken: List[Cols], ok: List[torch.Tensor], perm
+def _send(taken: List[Cols], ok: List[torch.Tensor], perm, group
           ) -> Tuple[List[Cols], List[torch.Tensor]]:
     """ppermute every array and the valid flags; a shard no pair sends to
     (shard 0 of a backward halo, every shard of a single-shard table)
     receives zeros, i.e. no valid row."""
     recv = [dict() for _ in taken]
     for name in taken[0]:
-        sent = spmd_ppermute([t[name] for t in taken], perm)
+        sent = spmd_ppermute([t[name] for t in taken], perm, group=group)
         for s, v in enumerate(sent):
             recv[s][name] = v
-    return recv, spmd_ppermute(ok, perm)
+    return recv, spmd_ppermute(ok, perm, group=group)
 
 
-def tail_halo(arrays: Sequence[Cols], counts: Sequence[torch.Tensor], h: int
-              ) -> Tuple[List[Cols], List[torch.Tensor]]:
+def tail_halo(arrays: Sequence[Cols], counts: Sequence[torch.Tensor], h: int,
+              group=None) -> Tuple[List[Cols], List[torch.Tensor]]:
     """Last ``h`` valid rows of each shard, delivered to the NEXT shard.
 
     Returns, per shard, ``(received arrays (h, ...), received valid
@@ -113,11 +114,12 @@ def tail_halo(arrays: Sequence[Cols], counts: Sequence[torch.Tensor], h: int
         ok = src >= 0
         taken.append(_take(a, src, ok))
         oks.append(ok)
-    return _send(taken, oks, [(s, s + 1) for s in range(len(taken) - 1)])
+    n = shard_span(taken, group)[0]
+    return _send(taken, oks, [(s, s + 1) for s in range(n - 1)], group)
 
 
-def head_halo(arrays: Sequence[Cols], counts: Sequence[torch.Tensor], k: int
-              ) -> Tuple[List[Cols], List[torch.Tensor]]:
+def head_halo(arrays: Sequence[Cols], counts: Sequence[torch.Tensor], k: int,
+              group=None) -> Tuple[List[Cols], List[torch.Tensor]]:
     """First ``k`` valid rows of each shard, delivered to the PREVIOUS
     shard — the forward (lead) counterpart of :func:`tail_halo`."""
     taken, oks = [], []
@@ -126,7 +128,8 @@ def head_halo(arrays: Sequence[Cols], counts: Sequence[torch.Tensor], k: int
         ok = j < count
         taken.append(_take(a, j, ok))
         oks.append(ok)
-    return _send(taken, oks, [(s + 1, s) for s in range(len(taken) - 1)])
+    n = shard_span(taken, group)[0]
+    return _send(taken, oks, [(s + 1, s) for s in range(n - 1)], group)
 
 
 def chain_carries(head_keys: torch.Tensor, tail_keys: torch.Tensor,

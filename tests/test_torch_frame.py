@@ -205,15 +205,17 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DistTable.from_numpy_blocks({"k": LEFT["k"]}, [NL])
     assert HPTMTContext(device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="process group"):
         HPTMTContext(device="cpu", group=object())
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(monkeypatch):
     # the runtime services are ported: a planned collect runs under a
-    # collector and explain(analyze=True) annotates it; process groups
-    # across cards are still a later slice
+    # collector and explain(analyze=True) annotates it; the services on a
+    # process group are still a later slice (tests/test_torch_group.py
+    # holds each refusal on a real group)
     from repro_torch import telemetry
+    from repro_torch.workflow import WorkflowEngine
 
     df = DataFrame.from_dict(LEFT, CPU1)
     lf = df.lazy().groupby(["g"], [("v", "sum")])
@@ -221,8 +223,9 @@ def test_later_slices_raise():
     lf.collect(telemetry=rec)
     assert rec.audits[-1]["consistent"] is True
     assert "audit: predicted=0 counted=0" in lf.explain(analyze=True)
-    with pytest.raises(NotImplementedError, match="process groups"):
-        HPTMTContext(device="cpu", group=object())
+    monkeypatch.setenv("WORLD_SIZE", "4")  # one rank of a torchrun group
+    with pytest.raises(NotImplementedError, match="process group"):
+        WorkflowEngine()
 
 
 def test_port_imports_neither_jax_nor_reference():

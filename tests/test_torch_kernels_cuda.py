@@ -613,3 +613,16 @@ def test_flash_attention_raises_under_grad(dev, dtype):
     with torch.no_grad():
         out = fao.flash_attention(q, k, v)
     assert fak.LAUNCHES.n == before + 1 and out.grad_fn is None
+
+
+def test_launch_refuses_a_tensor_off_the_current_device(dev, monkeypatch):
+    """The C entry points launch on the current device: inputs on another
+    card raise before the launch (a rank that never set its device)."""
+    keys = torch.zeros((64, 1), dtype=torch.int32, device=dev)
+    valid = torch.ones(64, dtype=torch.bool, device=dev)
+    before = hpk.LAUNCHES.n
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: keys.device.index + 1)
+    with pytest.raises(RuntimeError, match="current CUDA device"):
+        hpk.hash_partition_cuda(keys, valid, 4)
+    assert hpk.LAUNCHES.n == before
