@@ -188,15 +188,16 @@ Phases (every failed check raises; nothing is caught):
 18.-24. serving every other family of the reference through the same
    ``Engine.generate`` traffic as phases 8-9 (8 prompts of 1024 tokens,
    greedy, 64 new tokens; random bf16 weights from ``--seed``; stub
-   ``0.02 * normal`` frontend embeddings): qwen2-moe-a2.7b (24 layers, 60
-   experts padded to 64, 4 shared), minicpm3-4b (62 layers of MLA),
-   xlstm-125m (12 layers), whisper-medium (24 + 24 layers over 1500
-   frames), then cut in depth where bf16 would not fit 80 GB whole:
+   ``0.02 * normal`` frontend embeddings): qwen2-moe-a2.7b (12 of its 24
+   layers, 60 experts padded to 64, 4 shared), minicpm3-4b (16 of its 62
+   layers of MLA; both cut in depth to keep the script inside its time
+   limit), xlstm-125m (12 layers), whisper-medium (24 + 24 layers over
+   1500 frames), then cut in depth where bf16 would not fit 80 GB whole:
    mixtral-8x7b (8 of 32 layers), jamba-v0.1-52b (one 8-layer group: 7
    Mamba, 1 attention, 4 MoE) and internvl2-76b (8 of 80 layers, 256
    patches prefixing the prompt), every width as published.  Flash
    launches once per GQA self-attention layer of the decoder in the
-   prefill, all on the tensor-core kernel (24 / 0 / 0 / 24 / 8 / 1 / 8);
+   prefill, all on the tensor-core kernel (12 / 0 / 0 / 24 / 8 / 1 / 8);
    where it launches, each launch's output agrees with the plain
    ``attend`` on the same q, k and v to 2e-2 (phase 2's bf16 tolerance),
    the prefill logits of a dense model with the plain path's to 2e-2 of
@@ -210,7 +211,7 @@ Phases (every failed check raises; nothing is caught):
    one to 2e-2 in float32;
    the MoE dropped fraction is printed for a prefill and a decode step.
    Prefill ms, decode ms a token, tokens/s and peak GiB: medians of 3
-   runs, one run for the configs cut in depth;
+   runs for the whole models, one run for the configs cut in depth;
 25. training, smollm-360m at its full published width and depth (32
    layers, d_model 960, GQA 15/5, vocab 49152, tied embeddings): float32
    masters drawn on the card from ``--seed``, bf16 compute, each layer
@@ -292,7 +293,34 @@ Phases (every failed check raises; nothing is caught):
    the ``kernels`` line.  Prints one ``group`` line a leg: backend, world,
    cards, medians and runs, the ``all_to_all`` ms of one packed shuffle
    frame of the join (with its bytes), each rank's peak GiB and seconds;
-30. summary — the script's seconds so far, the ``kernels`` JSON line, the
+30. training across ranks: the training launcher's mesh path
+   (``launch.train.mesh_setup``: a 2x2 ``data x model`` mesh of
+   sub-groups, ``make_training_data`` on the data axis's group, the
+   rank's blocks of the masters drawn from ``--seed``, the FSDP x TP
+   ``make_sharded_train_step``) on 4 spawned ranks — NCCL with a card a
+   rank where 4 cards exist, else gloo with every rank on card 0 (NCCL
+   refuses two ranks on a device).  (a) smollm-360m as published, float32
+   masters, bf16 compute, batch 8 x 1024 on phase 26's corpus: the
+   curated stream on every rank bit for bit the same pipeline's on 2
+   virtual shards on one card (blake2b), every rank launching
+   hash_partition and the probe; the first step's grad norm and every
+   gathered gradient against phase 25's one-card step on the same state
+   and global batch, within ``BF16_VS_F32`` (about 3x phase 25's
+   bf16-vs-float32 reading), its loss in float32 compute (the same
+   blocks) to ``MESH_LOSS_F32_REL`` and in bf16 within 3x the larger of
+   the two steps' own bf16-vs-float32 gaps (the checked step's model
+   collectives timed, each synchronized); then 3 timed steps.  (b)
+   qwen2-moe-a2.7b at published widths, 2 of its 24 layers (~1.8 B
+   parameters), expert parallel over ``model`` (64 padded experts), in
+   float32 compute, batch 2 x 1024: one checked step against the
+   one-card step with micro-batches = the data axis (the EP metrics'
+   semantics), within ``MOE_MESH_LIMITS``.  Every rank's loss and grad
+   norm the same.  One ``mesh_train`` line a config: backend, world,
+   cards, step ms (median of 3), tokens/s, peak GiB a rank, the checked
+   step's model collectives by kind and axis and their ms a rank, the
+   phase's seconds; the ranks' launches join the ``kernels``
+   line;
+31. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -349,7 +377,9 @@ SERVE = {"batch": 8, "prompt": 1024, "gen": 64}
 SERVE_F32 = {"batch": 2, "prompt": 256, "gen": 16}
 # phases 18-24: config, depth on the card (None: all its layers), timed
 # runs; a cut config is one that does not fit 80 GB whole in bf16
-FAMILIES = [("qwen2-moe-a2.7b", None, 3), ("minicpm3-4b", None, 3),
+#: qwen2-moe and minicpm3 cut in depth too (PR 24): the script stays
+#: inside its time limit with phase 30 added
+FAMILIES = [("qwen2-moe-a2.7b", 12, 1), ("minicpm3-4b", 16, 1),
             ("xlstm-125m", None, 3), ("whisper-medium", None, 3),
             ("mixtral-8x7b", 8, 1), ("jamba-v0.1-52b", 8, 1),
             ("internvl2-76b", 8, 1)]
@@ -3571,6 +3601,341 @@ def group_phase(ref, oracle, dev, seed: int, launches) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 30: training across ranks — the launcher's mesh path
+# ---------------------------------------------------------------------------
+MESH_WORLD = 4
+MESH_DIMS, MESH_NAMES = (2, 2), ("data", "model")
+MESH_TIMEOUT_S = 900
+#: (a) smollm-360m as published (bf16 compute) on phase 26's corpus (2^15
+#: documents, ~2^24 token rows), 1 checked step and 3 timed; (b)
+#: qwen2-moe-a2.7b at published widths, 2 of its 24 layers (~1.8 B
+#: parameters: ~29 GB of float32 masters and Adam state over the ranks),
+#: one checked step on the pipeline's default corpus, in float32 compute:
+#: in bf16 a random MoE's routing flips on rounding and swamps the check
+#: (my first chip calls: 0.84 of a leaf's largest element, where the
+#: float32 CPU parity holds to 1e-6)
+MESH_TRAIN = {
+    "smollm": {"arch": "smollm-360m", "layers": None, "batch": 8,
+               "seq": 1024, "timed": 3, "dtype": None,
+               "corpus": {"n_docs": 1 << 15, "mean_doc_len": 512}},
+    "qwen2_moe": {"arch": "qwen2-moe-a2.7b", "layers": 2, "batch": 2,
+                  "seq": 1024, "timed": 0, "dtype": "float32",
+                  "corpus": {}},
+}
+#: (a): the gradients and their norm within ``BF16_VS_F32`` (about 3x
+#: phase 25's bf16-vs-float32 readings); the loss in float32 compute
+#: (a forward of the same blocks) to float32 reordering, and the bf16
+#: losses within 3x the larger of the two steps' own bf16-vs-float32 gaps
+MESH_LOSS_F32_REL = 1e-6
+#: (b), float32 compute, against the one-card step with micro-batches =
+#: the data axis (the EP metrics' semantics: each shard's own, meaned);
+#: the leaf gap leaves room for one routing near-tie rounded the other way
+MOE_MESH_LIMITS = {"leaf_rel_l2": 1e-2, "norm_rel": 1e-4, "loss_rel": 1e-5}
+
+
+def mesh_cfg(conf):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(conf["arch"])
+    if conf["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=conf["layers"])
+    if conf["dtype"]:
+        cfg = dataclasses.replace(cfg, dtype=conf["dtype"])
+    return cfg
+
+
+def mesh_corpus(cfg, conf):
+    from repro_torch.data import pipeline as TP
+
+    return TP.CorpusConfig(vocab_size=cfg.vocab_size, **conf["corpus"])
+
+
+def one_card_grads(cfg, tcfg, batch, seed: int, dev):
+    """Phase 25's step function on the one-card state drawn from ``seed``
+    (the sharded init's draws) → (float32 gradients averaged over the
+    micro-batches, loss, the same loss with float32 compute: this
+    batch's bf16-vs-float32 reading)."""
+    from repro_torch.train import train_step as TS
+
+    state = TS.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    m = tcfg.micro_batches
+    micros = [{k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+               for k, v in batch.items()} for i in range(m)]
+    model = TS.bind(TS.skeleton(cfg), state.params)
+    grads, loss = None, 0.0
+    for micro in micros:
+        g, met = TS.compute_grads(model, cfg, tcfg, micro, state.params)
+        if grads is None:
+            grads = g
+        else:
+            for k in grads:
+                grads[k] += g[k]
+        loss += float(met["loss"]) / m
+        del g
+    loss32 = loss
+    if cfg.dtype != "float32":
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = TS.bind(TS.skeleton(cfg32), state.params)
+        loss32 = 0.0
+        with torch.no_grad():
+            for micro in micros:
+                loss32 += float(TS.loss_fn(model, cfg32, tcfg,
+                                           micro)[1]["loss"]) / m
+    del state, model
+    for g in grads.values():
+        g /= m
+    return grads, loss, loss32
+
+
+def leaf_gap(block: torch.Tensor, full, spec, mesh) -> tuple:
+    """A sharded leaf against rank 0's whole reference ``full`` →
+    ``(|d| / |ref|`` in 2-norm, ``max|d| / max|ref|)`` on every rank.
+    Rank 0 sends each rank the reference block it holds (one uneven
+    ``all_to_all_single``: a quarter of an all-gather's bytes); each rank
+    sums its own block's squares, counted once where the leaf is
+    replicated, and the small sums are all-gathered."""
+    import torch.distributed as dist
+
+    from repro_torch.core import array_ops
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.axes import GroupMesh
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    names, dims = list(mesh), [mesh[a] for a in mesh]
+    nbytes = block.numel() * block.element_size()
+    send = torch.empty(0, dtype=torch.uint8, device=block.device)
+    if full is not None:
+        blocks = []
+        for r in range(world):
+            at = GroupMesh(mesh.sizes, {}, dict(zip(names, (
+                int(c) for c in np.unravel_index(r, dims)))))
+            blocks.append(partition.shard_tensor(full, spec, at)
+                          .contiguous().reshape(-1).view(torch.uint8))
+        send = torch.cat(blocks)
+    recv = torch.empty(nbytes, dtype=torch.uint8, device=block.device)
+    dist.all_to_all_single(recv, send, [nbytes] + [0] * (world - 1),
+                           [nbytes if full is not None else 0] * world)
+    ref = recv.view(block.dtype).reshape(block.shape)
+    d = (block - ref).float()
+    owner = all(mesh.coords[a] == 0 for a in names
+                if a not in partition.sharded_axes(spec))
+    mine = torch.stack([d.square().sum() * owner,
+                        ref.float().square().sum() * owner,
+                        d.abs().max(), ref.abs().max().float()])
+    every = array_ops.spmd_allgather([mine], tiled=False,
+                                     group=dist.group.WORLD)[0]
+    sums, maxes = every[:, :2].sum(0), every[:, 2:].amax(0)
+    return (float(sums[0].sqrt() / sums[1].sqrt().clamp_min(1e-30)),
+            float(maxes[0] / maxes[1].clamp_min(1e-30)))
+
+
+def mesh_train_rank(ctx, seed: int, name: str) -> dict:
+    """One rank of phase 30: the launcher's mesh set-up
+    (``launch.train.mesh_setup``), a checked first step against the
+    one-card step (on rank 0), then timed steps and one step with the
+    model collectives timed."""
+    from repro_torch.core import array_ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.sharding import axes as am
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptimizerConfig, global_norm
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf = MESH_TRAIN[name]
+    dev = ctx.device
+    cfg = mesh_cfg(conf)
+    tcfg = TS.TrainConfig(optimizer=OptimizerConfig(warmup_steps=2,
+                                                    total_steps=100))
+    torch.cuda.reset_peak_memory_stats()
+    launches = Launches()
+    launches.reset()
+    t0 = time.perf_counter()
+    run = tlaunch.mesh_setup(cfg, tcfg, mesh_corpus(cfg, conf), MESH_DIMS,
+                             MESH_NAMES, conf["batch"], conf["seq"], dev,
+                             seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prep, exchanges = launches.read()
+    launches.reset()
+    mesh, specs = run.mesh, run.specs
+    split = {k: partition.sharded_axes(v) for k, v in specs.items()}
+    batch = next(run.data)
+    local = TS.local_batch(batch, mesh)
+    rank0 = ctx.rank == 0
+
+    # the checked first step: its gradients against the one-card step's
+    ref = None
+    if rank0:
+        ref_tcfg = tcfg
+        if cfg.is_moe:     # the EP metrics: each data shard's own, meaned
+            ref_tcfg = dataclasses.replace(tcfg, micro_batches=mesh["data"])
+        ref = one_card_grads(cfg, ref_tcfg, batch, seed, dev)
+        ref_norm = float(global_norm(ref[0].values()))
+        ref_loss, ref_loss32 = ref[1], ref[2]
+        torch.cuda.empty_cache()
+    with am.logical_binding(mesh):
+        model = TS.sharded_model(cfg, specs)
+        # the checked step's collectives are the ones timed (each
+        # synchronized); the timed steps below run untimed collectives
+        array_ops.MODEL_COLLECTIVES.reset()
+        array_ops.MODEL_COLLECTIVES.timed = True
+        t0 = time.perf_counter()
+        try:
+            grads, metrics = TS.compute_sharded_grads(
+                model, cfg, tcfg, local, run.state.params, mesh, specs)
+        finally:
+            array_ops.MODEL_COLLECTIVES.timed = False
+        torch.cuda.synchronize()
+        grads_s = time.perf_counter() - t0
+        step_counts = dict(array_ops.MODEL_COLLECTIVES.counts)
+        coll_s = dict(array_ops.MODEL_COLLECTIVES.seconds)
+        names = list(grads)
+        gnorm = float(global_norm([grads[k] for k in names],
+                                  [split[k] for k in names], mesh))
+        l2, of_max = {}, {}
+        for k in names:
+            l2[k], of_max[k] = leaf_gap(
+                grads[k], ref[0].pop(k) if rank0 else None, specs[k], mesh)
+        loss32 = None
+        if cfg.dtype != "float32":
+            # the same blocks and rows, float32 compute: the function
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            with torch.no_grad():
+                loss32 = float(TS.sharded_loss_fn(
+                    TS.bind(TS.sharded_model(cfg32, specs),
+                            run.state.params), cfg32, tcfg, local,
+                    mesh)[1]["loss"])
+        state = TS.TrainState(*TS.adamw_update(
+            tcfg.optimizer, run.state.params, grads, run.state.opt,
+            split, mesh)[:2])
+    del grads, ref
+    loss = float(metrics["loss"])
+    check(np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0,
+          f"rank {ctx.rank}: finite loss {loss} and grad norm {gnorm}")
+    agree = None
+    if rank0:
+        worst = max(l2, key=l2.get)
+        agree = {"leaf_rel_l2": l2[worst], "leaf_rel_l2_at": worst,
+                 "leaf_of_max": max(of_max.values()),
+                 "leaf_of_max_at": max(of_max, key=of_max.get),
+                 "norm_rel": abs(gnorm - ref_norm) / ref_norm,
+                 "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                 "loss": loss, "loss_one_card": ref_loss,
+                 "loss_one_card_f32": ref_loss32}
+        if loss32 is not None:
+            agree.update(
+                loss_f32=loss32,
+                loss_f32_rel=abs(loss32 - ref_loss32) / abs(ref_loss32),
+                bf16_loss_gap=3 * max(abs(loss - loss32) / abs(loss32),
+                                      abs(ref_loss - ref_loss32)
+                                      / abs(ref_loss32)))
+
+    def one():
+        nonlocal state
+        b = TS.local_batch(next(run.data), mesh)
+        state, m = run.step(state, b)
+        return float(m["loss"])             # waits for the step
+
+    runs = timed_runs(one, conf["timed"]) if conf["timed"] else []
+    coll_ms = {k: v * 1e3 for k, v in coll_s.items()}
+    launches.read()
+    return {"rank": ctx.rank, "stream": digest(
+                torch.from_numpy(run.data.stream)),
+            "stream_tokens": int(run.data.stream.shape[0]),
+            "prepare_launches": prep, "exchanges": exchanges,
+            "launches": launches.total, "loss": loss, "grad_norm": gnorm,
+            "agree": agree, "step_counts": step_counts,
+            "collective_ms": coll_ms,
+            "runs_s": runs, "setup_s": setup_s, "grads_s": grads_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_start}
+
+
+def mesh_train_phase(seed: int, launches) -> None:
+    """Phase 30: the launcher's mesh path on 4 ranks (NCCL with a card a
+    rank where 4 cards exist, else gloo with every rank on card 0) for
+    each of :data:`MESH_TRAIN`: prints a ``mesh_train`` line a config,
+    then holds each step against the one-card step."""
+    from repro_torch.core import HPTMTContext
+    from repro_torch.data import pipeline as TP
+    from repro_torch.launch.mesh import run_ranks
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+    lines, checks = [], []
+    for name, conf in MESH_TRAIN.items():
+        t0 = time.perf_counter()
+        cfg = mesh_cfg(conf)
+        ccfg = mesh_corpus(cfg, conf)
+        # the same pipeline on the data axis's shard count, one card
+        ctx2 = HPTMTContext(n_shards=MESH_DIMS[0], device="cuda")
+        want = TP.preprocess(TP.synthetic_corpus(ccfg, ctx2), ccfg, ctx2)
+        want = digest(torch.from_numpy(want))
+        torch.cuda.empty_cache()
+        ranks = run_ranks(mesh_train_rank, MESH_WORLD, backend, "cuda",
+                          args=(seed, name), timeout_s=MESH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        agree = ranks[0]["agree"]
+        print(f"  {name} sharded step vs one card: {agree}", flush=True)
+        checks.append((name, cfg, agree))
+        for r in ranks:
+            check(r["stream"] == want, f"{name} rank {r['rank']}: the "
+                  f"curated stream is the 2-shard pipeline's, bit for bit")
+            check(r["loss"] == ranks[0]["loss"]
+                  and r["grad_norm"] == ranks[0]["grad_norm"],
+                  f"{name} rank {r['rank']}: the same loss and grad norm")
+            for k in ("hash_partition", "probe"):
+                check(r["prepare_launches"][k] > 0,
+                      f"{name} rank {r['rank']} launched {k}")
+            for k, n in r["launches"].items():
+                launches.total[k] += n
+        check(ranks[0]["step_counts"].get("all_reduce/model", 0) > 0
+              and ranks[0]["step_counts"].get("all_gather/data", 0) > 0,
+              f"{name}: the step ran tensor parallel and FSDP: "
+              f"{ranks[0]['step_counts']}")
+        runs = ranks[0]["runs_s"]
+        step_s = statistics.median(runs) if runs else None
+        tokens = conf["batch"] * conf["seq"]
+        lines.append({
+            "config": name, "arch": conf["arch"], "layers": cfg.n_layers,
+            "params": cfg.param_count(), "backend": backend,
+            "world": MESH_WORLD, "cards": min(MESH_WORLD, n_cards),
+            "mesh": "x".join(map(str, MESH_DIMS)), "batch": conf["batch"],
+            "seq": conf["seq"], "loss": ranks[0]["loss"],
+            "grad_norm": ranks[0]["grad_norm"], "vs_one_card": agree,
+            "step_ms": None if step_s is None else step_s * 1e3,
+            "runs_ms": [r * 1e3 for r in runs],
+            "tokens_per_s": None if step_s is None else tokens / step_s,
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "step_collectives": ranks[0]["step_counts"],
+            "collective_ms": [r["collective_ms"] for r in ranks],
+            "stream_tokens": ranks[0]["stream_tokens"],
+            "prepare_launches": [r["prepare_launches"] for r in ranks],
+            "exchanges": ranks[0]["exchanges"],
+            "setup_s": [r["setup_s"] for r in ranks],
+            "checked_grads_s": [r["grads_s"] for r in ranks],
+            "rank_seconds": [r["seconds"] for r in ranks],
+            "seconds": seconds})
+        torch.cuda.empty_cache()
+    for line in lines:
+        emit("mesh_train", **line)
+    for name, cfg, agree in checks:
+        if cfg.dtype == "float32":
+            limits = MOE_MESH_LIMITS
+        else:
+            limits = {k: BF16_VS_F32[k] for k in
+                      ("leaf_rel_l2", "leaf_of_max", "norm_rel")}
+            limits.update(loss_f32_rel=MESH_LOSS_F32_REL,
+                          loss_rel=agree["bf16_loss_gap"])
+        for key, limit in limits.items():
+            check(agree[key] <= limit, f"{name}: sharded step vs one "
+                  f"card {key} {agree[key]} within {limit}")
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3861,7 +4226,13 @@ def main() -> int:
     del group_ref
     emit("group_seconds", total=time.perf_counter() - t0)
 
-    # 30. summary
+    # 30. training across ranks: the launcher's mesh path, 2x2 on 4 ranks
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_train_phase(args.seed, launches)
+    emit("mesh_train_seconds", total=time.perf_counter() - t0)
+
+    # 31. summary
     kernels = []
     for r in krows:
         name = r["name"]

@@ -61,6 +61,15 @@ jaxpr ``all_to_all`` count, so the shuffle-elision contracts (DESIGN.md
 §4) are asserted on it.  The other collectives move small per-shard
 state, not rows of a table, and do not count as exchanges.
 
+The sharded model and train step move activations, weights and
+gradients over ONE axis of a mesh of ranks at a time
+(:func:`axis_all_gather`, :func:`axis_reduce_scatter`,
+:func:`axis_all_reduce`, and Megatron's pair :func:`copy_to_axis` /
+:func:`reduce_from_axis`), each a ``torch.autograd.Function`` whose
+backward is its dual; built on the same two calls and folded in rank
+order, they are counted by kind and axis in :data:`MODEL_COLLECTIVES`,
+not in :data:`EXCHANGES`.
+
 :data:`SORTS` counts the port's stable lexicographic sorts
 (``core/exchange.py:lex_order``, the one sort choke point); it stands in
 for the reference tests' jaxpr ``"sort["`` check of the ordered
@@ -68,8 +77,10 @@ operators (DESIGN.md §9: a window on a range layout sorts nothing).
 """
 from __future__ import annotations
 
+import contextlib
 import operator as _op
-from typing import List, Sequence, Tuple
+import time
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -412,3 +423,218 @@ def reduce(x, *, ctx: HPTMTContext, root: int = 0, op: str = "sum"):
         return _local_reduce(x, op, keepdim=True)
     return torch.stack(spmd_reduce(_heads(x, ctx), root, op,
                                    group=ctx.group))
+
+
+# ---------------------------------------------------------------------------
+# model collectives over one axis of a mesh of ranks
+# ---------------------------------------------------------------------------
+# The sharded model and train step (``sharding/axes.py:GroupMesh``) move
+# activations, weights and gradients over one mesh axis at a time: the
+# axis's sub-group, this rank's coordinate on it.  Built, like the table
+# transport above, from ``all_to_all_single`` and ``all_gather_into_tensor``
+# on bytes only; every sum is folded here in rank order (never
+# ``dist.all_reduce`` or ``dist.reduce_scatter_tensor``: gloo has no
+# reduce-scatter, and a backend's order would make ranks differ in their
+# last bits), so every rank of an axis holds the same bits.  An axis of
+# size 1 moves nothing and is not counted.  None of these is a table
+# exchange: they are counted in :data:`MODEL_COLLECTIVES`, by kind and
+# axis, never in :data:`EXCHANGES`.
+class Tally:
+    """Calls counted by key (``"all_reduce/model"``), reset before a run
+    and read after.  With ``timed`` set, each call waits for the device
+    before and after and adds its seconds under its key too."""
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {}
+        self.seconds: Dict[str, float] = {}
+        self.timed = False
+
+    def reset(self) -> None:
+        self.counts, self.seconds = {}, {}
+
+    @contextlib.contextmanager
+    def call(self, kind: str, axis: str, device: torch.device):
+        key = f"{kind}/{axis}"
+        self.counts[key] = self.counts.get(key, 0) + 1
+        if not self.timed:
+            yield
+            return
+        sync = (torch.cuda.synchronize if device.type == "cuda"
+                else (lambda _d: None))
+        sync(device)
+        t0 = time.perf_counter()
+        yield
+        sync(device)
+        self.seconds[key] = (self.seconds.get(key, 0.0)
+                             + time.perf_counter() - t0)
+
+
+#: calls of the model collectives below, by kind and axis
+MODEL_COLLECTIVES = Tally()
+
+
+def _axis(mesh, axis: str) -> Tuple[object, int, int]:
+    """``(group, size, this rank's coordinate)`` of ``axis`` (size 1 and
+    no group for an axis the mesh lacks)."""
+    if axis not in mesh:
+        return None, 1, 0
+    return mesh.groups[axis], mesh[axis], mesh.coords[axis]
+
+
+def _exchange_blocks(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (n, ...): block ``d`` to rank ``d``; returns (n, ...), block
+    ``s`` from rank ``s`` (one even ``all_to_all_single``)."""
+    send = _bytes(x)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return _unbytes(recv, x.dtype, x.shape)
+
+
+def _fold(blocks, op: str = "sum") -> torch.Tensor:
+    """Combine a stack's blocks in rank order."""
+    fn = _COMBINE[op]
+    out = blocks[0]
+    for b in blocks[1:]:
+        out = fn(out, b)
+    return out
+
+
+def _gather_dim(x, mesh, axis, dim):
+    group, n, _ = _axis(mesh, axis)
+    with MODEL_COLLECTIVES.call("all_gather", axis, x.device):
+        stack = _gather_stack(x.unsqueeze(0), group)
+    return torch.cat(list(stack.unbind(0)), dim=dim)
+
+
+def _scatter_dim(x, mesh, axis, dim):
+    group, n, _ = _axis(mesh, axis)
+    send = torch.stack(_split(x, n, dim, "reduce_scatter"))
+    with MODEL_COLLECTIVES.call("reduce_scatter", axis, x.device):
+        recv = _exchange_blocks(send, group)
+    return _fold(recv.unbind(0))
+
+
+def _reduce(x, mesh, axis, op: str = "sum"):
+    group, n, _ = _axis(mesh, axis)
+    with MODEL_COLLECTIVES.call("all_reduce", axis, x.device):
+        if op != "sum":
+            return _fold(_gather_stack(x.unsqueeze(0), group).unbind(0), op)
+        # a reduce-scatter of the flat value, then an all-gather: each
+        # chunk folded in rank order on the rank that owns it
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        send = flat.reshape(n, -1)
+        part = _fold(_exchange_blocks(send, group).unbind(0))
+        full = _gather_stack(part.unsqueeze(0), group).reshape(-1)
+    return full[:x.numel()].reshape(x.shape)
+
+
+def _dim(x: torch.Tensor, dim: int) -> int:
+    return dim % x.dim()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, backward):
+        ctx.meta = (mesh, axis, dim, backward)
+        return _gather_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, how = ctx.meta
+        if how == "slice":
+            _, n, coord = _axis(mesh, axis)
+            g = g.narrow(dim, coord * (g.shape[dim] // n), g.shape[dim] // n)
+        else:
+            g = _scatter_dim(g, mesh, axis, dim)
+        return g.contiguous(), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.meta = (mesh, axis, dim)
+        return _scatter_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.meta
+        return _gather_dim(g, mesh, axis, dim), None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.meta = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, *ctx.meta), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _moves(mesh, axis) -> bool:
+    return _axis(mesh, axis)[1] > 1
+
+
+def axis_all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0,
+                    backward: str = "reduce_scatter") -> torch.Tensor:
+    """The blocks of ``axis``'s ranks concatenated along ``dim``, in
+    coordinate order.  Backward ``"reduce_scatter"``: each rank's consumer
+    did its own work (an FSDP weight used on the rank's batch rows), so
+    the gradients are summed and scattered back.  ``"slice"``: the
+    consumers are replicated over ``axis`` (every rank computes the same
+    thing from the whole tensor), so each rank's gradient is already the
+    whole one and it keeps its own block."""
+    if not _moves(mesh, axis):
+        return x
+    if backward not in ("reduce_scatter", "slice"):
+        raise ValueError(f"backward={backward!r}")
+    return _AllGather.apply(x, mesh, axis, _dim(x, dim), backward)
+
+
+def axis_reduce_scatter(x: torch.Tensor, mesh, axis: str,
+                        dim: int = 0) -> torch.Tensor:
+    """The sum over ``axis``'s ranks, each keeping its block along
+    ``dim``; backward is the all-gather."""
+    if not _moves(mesh, axis):
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, _dim(x, dim))
+
+
+def axis_all_reduce(x: torch.Tensor, mesh, axis: str,
+                    op: str = "sum") -> torch.Tensor:
+    """The ``sum``/``max``/``min`` over ``axis``'s ranks on every rank (no
+    gradient: gradients' own reductions, a row max)."""
+    if not _moves(mesh, axis):
+        return x
+    return _reduce(x.detach(), mesh, axis, op)
+
+
+def copy_to_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's "copy into the parallel region": the identity forward;
+    backward sums the ranks' partial gradients of the replicated ``x``."""
+    if not _moves(mesh, axis):
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's "reduce out of the parallel region": the sum of the
+    ranks' partial ``x`` forward; backward is the identity (the replicated
+    result's gradient is every rank's own)."""
+    if not _moves(mesh, axis):
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)

@@ -12,6 +12,13 @@ The same kernels power both styles; only the driver differs.  That is the
 paper's Fig 9: dataflow operators and eager operators working together in
 a single parallel program.
 
+On a process group (``ctx.group``) a TSet runs as far as the training
+data pipeline uses it: :meth:`TSet.from_table`, :meth:`~TSet.select`,
+:meth:`~TSet.project`, :meth:`~TSet.join` and :meth:`~TSet.collect`, over
+the table operators on the group — each rank chunks and concatenates its
+own shards.  Every other source, operator and sink refuses a group
+(ROADMAP Queue 1 item 11c).
+
 One result differs from the reference on purpose: ``reduce(col, "mean")``
 returns the true mean (the summed per-chunk sums over the summed counts,
 as reference DESIGN.md §4.2 decomposes a mean and the eager ``aggregate``
@@ -47,7 +54,6 @@ class TSet:
     """A lazy, chunked, distributed dataset (Twister2 TSet analogue)."""
 
     def __init__(self, node: _Node, ctx: HPTMTContext):
-        ctx.require_virtual("the TSet dataflow", "11c")
         self._node = node
         self._ctx = ctx
         self._last_report: Optional[OverflowReport] = None
@@ -62,10 +68,23 @@ class TSet:
         return self._last_report
 
     # -- sources -----------------------------------------------------------
+    def _virtual(self, what: str) -> None:
+        """Refuse a method that does not run on a group yet."""
+        self._ctx.require_virtual(f"TSet.{what}", "11c")
+
+    @classmethod
+    def _source(cls, chunks: Sequence[DistTable], ctx: HPTMTContext,
+                report=None) -> "TSet":
+        payload = {"chunks": list(chunks)}
+        if report is not None:
+            payload["report"] = report
+        return cls(_Node("source", payload=payload), ctx)
+
     @classmethod
     def from_chunks(cls, chunks: Sequence[DistTable],
                     ctx: HPTMTContext) -> "TSet":
-        return cls(_Node("source", payload={"chunks": list(chunks)}), ctx)
+        ctx.require_virtual("TSet.from_chunks", "11c")
+        return cls._source(chunks, ctx)
 
     @classmethod
     def from_spill(cls, result, ctx: Optional[HPTMTContext] = None) -> "TSet":
@@ -77,17 +96,18 @@ class TSet:
         every materialization's :attr:`overflow_report`.  Duck-typed on
         ``.chunks()`` / ``.report`` so core never imports the spill
         layer."""
-        node = _Node("source", payload={"chunks": list(result.chunks()),
-                                        "report": result.report})
-        return cls(node, ctx or result._ctx)
+        ctx = ctx or result._ctx
+        ctx.require_virtual("TSet.from_spill", "11c")
+        return cls._source(result.chunks(), ctx, result.report)
 
     @classmethod
     def from_table(cls, dt: DistTable, ctx: HPTMTContext,
                    chunk_rows: Optional[int] = None) -> "TSet":
         """Split a table into row-chunks of at most ``chunk_rows`` rows a
-        shard each (views of the table's blocks, no copy)."""
+        shard each (views of the table's blocks, no copy; on a group, of
+        this rank's blocks)."""
         if chunk_rows is None or chunk_rows >= dt.capacity:
-            return cls.from_chunks([dt], ctx)
+            return cls._source([dt], ctx)
         chunks = []
         cap = dt.capacity
         for start in range(0, cap, chunk_rows):
@@ -95,8 +115,8 @@ class TSet:
             cols = {k: v[:, start:stop] for k, v in dt.columns.items()}
             counts = torch.clamp(dt.counts - start, 0, stop - start)
             # row-slicing never moves rows across shards: layout survives
-            chunks.append(DistTable(cols, counts, dt.partitioning))
-        return cls.from_chunks(chunks, ctx)
+            chunks.append(DistTable(cols, counts, dt.partitioning, dt.group))
+        return cls._source(chunks, ctx)
 
     @classmethod
     def from_scan(cls, scan, ctx: Optional[HPTMTContext] = None) -> "TSet":
@@ -123,6 +143,7 @@ class TSet:
                     ) -> "TSet":
         """Apply a per-chunk columnar transform (adds/replaces columns).
         ``fn`` sees ``(n_shards, capacity, ...)`` column blocks."""
+        self._virtual("map_columns")
         return TSet(_Node("map", (self._node,), {"fn": fn}), self._ctx)
 
     # -- barrier (shuffling) operators ---------------------------------------
@@ -132,16 +153,19 @@ class TSet:
 
     def groupby(self, keys: Sequence[str], aggs: Sequence[Tuple[str, str]],
                 **kw) -> "TSet":
+        self._virtual("groupby")
         return TSet(_Node("groupby", (self._node,),
                           {"keys": tuple(keys), "aggs": tuple(aggs),
                            "kw": kw}), self._ctx)
 
     def orderby(self, by, **kw) -> "TSet":
         """Global multi-key sort at the barrier (materializing)."""
+        self._virtual("orderby")
         return TSet(_Node("orderby", (self._node,), {"by": by, "kw": kw}),
                     self._ctx)
 
     def union(self, other: "TSet", **kw) -> "TSet":
+        self._virtual("union")
         return TSet(_Node("union", (self._node, other._node), {"kw": kw}),
                     self._ctx)
 
@@ -150,6 +174,7 @@ class TSet:
         """Windowed aggregation barrier: chunks merge, one sample-sort
         exchange orders them (elided if the layout holds), the window
         lanes evaluate in place.  Truncated windows raise."""
+        self._virtual("window")
         return TSet(_Node("window", (self._node,),
                           {"partition_by": partition_by,
                            "order_by": order_by, "aggs": tuple(aggs),
@@ -159,6 +184,7 @@ class TSet:
         """Streaming top-k via the combiner pattern: each chunk reduces to
         its own k candidates (bounded memory), and the barrier merges the
         per-chunk winners — no chunk ever rematerializes."""
+        self._virtual("topk")
         return TSet(_Node("topk", (self._node,),
                           {"by": by, "k": k, "kw": kw}), self._ctx)
 
@@ -194,6 +220,7 @@ class TSet:
         materialization's overflow report is carried into the lazy
         lineage.
         """
+        self._virtual("lazy")
         from ..plan import LazyFrame
         from ..plan.logical import source
 
@@ -206,6 +233,7 @@ class TSet:
 
         A mean merges as the sum of the chunks' sums over the sum of
         their counts, never as a mean of means."""
+        self._virtual("reduce")
         from ..kernels.segment_reduce import ops as segops
 
         chunks = self._run()
@@ -231,11 +259,13 @@ class TSet:
     def quantile(self, column: str, qs, **kw):
         """Column quantiles at the barrier (materializing; exact by
         default via the range layout — ``table_ops.quantile``)."""
+        self._virtual("quantile")
         dt = _concat_chunks(self._run(), self._ctx)
         return table_ops.quantile(dt, column, qs, ctx=self._ctx, **kw)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Bridge to NumPy (paper Fig 13 line 28 / Fig 17 line 18)."""
+        self._virtual("to_numpy")
         return self.collect().to_numpy()
 
 
@@ -246,14 +276,15 @@ def _concat_chunks(chunks: List[DistTable], ctx: HPTMTContext) -> DistTable:
     """Concatenate chunks shard-wise and re-compact each shard.
 
     Shard ``s`` of the result holds every chunk's shard-``s`` rows, in
-    chunk order, at capacity ``sum(chunk capacities)``.
+    chunk order, at capacity ``sum(chunk capacities)`` (on a group, for
+    each shard this rank holds).
     """
     if len(chunks) == 1:
         return chunks[0]
     names = chunks[0].column_names
     cap = sum(c.capacity for c in chunks)
     outs, counts = [], []
-    for shard in range(ctx.n_shards):
+    for shard in range(ctx.n_local):
         cols = {name: torch.cat([c.columns[name][shard] for c in chunks])
                 for name in names}
         # rows are valid-prefix within each chunk block, not globally
@@ -272,7 +303,7 @@ def _concat_chunks(chunks: List[DistTable], ctx: HPTMTContext) -> DistTable:
     part = parts.pop() if len(parts) == 1 else None
     if partitioning_kind(part) == "range":
         part = None
-    return DistTable.from_shards(outs, counts, part)
+    return DistTable.from_shards(outs, counts, part, ctx.group)
 
 
 def _execute(node: _Node, ctx: HPTMTContext,

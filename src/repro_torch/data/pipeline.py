@@ -13,6 +13,13 @@ the table→tensor bridge of paper Figs 13/17.  The tables live on
 ``ctx.device`` (the card unless the context names the CPU); the curated
 stream comes back to the host, and the batches go to the device as
 int32 tensors.
+
+On a process group (``ctx.group``: the data axis of a training mesh)
+each rank builds and curates its own shards, and the ordered stream is
+gathered to every rank, bit for bit the virtual run's on as many shards
+(the reference's drop quirk included: it depends on the shard count).
+Every rank then draws the same global batches from the seed; a sharded
+train step takes its rows of each (``train.train_step.local_batch``).
 """
 from __future__ import annotations
 
@@ -131,15 +138,32 @@ def batch_iterator(stream: np.ndarray, batch: int, seq_len: int,
                "labels": torch.from_numpy(labels.astype(np.int32)).to(dev)}
 
 
+class TrainingData:
+    """The batch iterator :func:`make_training_data` returns; ``stream``
+    is the curated token stream the batches are drawn from."""
+
+    def __init__(self, stream: np.ndarray,
+                 batches: Iterator[Dict[str, torch.Tensor]]):
+        self.stream = stream
+        self._batches = batches
+
+    def __iter__(self) -> "TrainingData":
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        return next(self._batches)
+
+
 def make_training_data(cfg: ModelConfig, ctx: HPTMTContext, batch: int,
                        seq_len: int, ccfg: Optional[CorpusConfig] = None,
-                       data_root: Optional[str] = None,
-                       ) -> Iterator[Dict[str, torch.Tensor]]:
+                       data_root: Optional[str] = None) -> TrainingData:
     """Batches on ``ctx.device`` from the synthetic corpus, or — with
     ``data_root`` — from an on-disk dataset corpus through the storage
     scan.  Encoder-decoder and VLM configs get stub frontend embeddings,
     ``0.02 * normal`` float32, as the reference makes them."""
-    ctx.require_virtual("the training data pipeline", "11b")
+    if data_root is not None:
+        ctx.require_virtual("the training data pipeline from a disk corpus",
+                            "11c")
     ccfg = ccfg or CorpusConfig(vocab_size=cfg.vocab_size)
     corpus = (disk_corpus(data_root, ctx) if data_root is not None
               else synthetic_corpus(ccfg, ctx))
@@ -147,7 +171,7 @@ def make_training_data(cfg: ModelConfig, ctx: HPTMTContext, batch: int,
     base = batch_iterator(stream, batch, seq_len, seed=ccfg.seed,
                           device=ctx.device)
     if cfg.frontend is None and not cfg.is_encoder_decoder:
-        return base
+        return TrainingData(stream, base)
 
     def with_frontend():
         rng = np.random.default_rng(ccfg.seed + 1)
@@ -156,4 +180,4 @@ def make_training_data(cfg: ModelConfig, ctx: HPTMTContext, batch: int,
                             ).astype(np.float32) * 0.02
             yield {**b, "frontend": torch.from_numpy(fe).to(ctx.device)}
 
-    return with_frontend()
+    return TrainingData(stream, with_frontend())

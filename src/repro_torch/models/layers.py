@@ -21,6 +21,18 @@ the reference's ``lax.map(jax.checkpoint(...))`` is.  Caches are
 updated in place: the decode step writes the new K/V (or MLA latent)
 into the tensors the prefill built instead of copying the cache, and
 returns the same tensors.
+
+On a mesh of ranks (a bound ``sharding.axes.GroupMesh``; training only)
+the GQA attention and the SwiGLU MLP are tensor parallel over ``model``
+(Megatron's pair: :func:`array_ops.copy_to_axis` on the input, one
+:func:`array_ops.reduce_from_axis` all-reduce after ``wo`` / ``w_out``).
+The reference's rules shard a *dimension* and leave GSPMD to reshard;
+the port's leaves are stored as ``param_specs`` says, and the layer
+decides from their blocks: attention keeps its local heads only when
+every projection splits on head boundaries (q and kv head counts divide
+the axis), else it gathers each split projection whole over ``model``
+and computes replicated — smollm's ``wq`` is ``(960, 15 * 64)``, whose
+960 columns split in two but whose 15 heads do not.
 """
 from __future__ import annotations
 
@@ -32,7 +44,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core import array_ops
 from ..kernels.flash_attention import ops as flash_ops
+from ..sharding import axes as shard_axes
 
 Cache = Dict[str, object]
 
@@ -280,13 +294,30 @@ class Attention(nn.Module):
         h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dt = x.dtype
         xn = self.norm(x, cfg.norm_eps)
+        wq, wk, wv, wo = self.wq, self.wk, self.wv, self.wo
+        mesh = shard_axes.group_mesh()
+        split = False
+        if mesh is not None:
+            if mode != "train" or kv_source is not None:
+                raise NotImplementedError(
+                    "attention on a mesh of ranks runs self-attention in "
+                    "training only; serving and cross-attention across "
+                    "ranks are ROADMAP Queue 1 item 11b")
+            wq, wk, wv, wo, split = self._mesh_weights(mesh)
+            if split:
+                m = mesh["model"]
+                h, hk = h // m, hk // m
+                xn = array_ops.copy_to_axis(xn, mesh, "model")
         is_cross = kv_source is not None
         kv_in = self.norm(kv_source, cfg.norm_eps) if is_cross else xn
         lk = kv_in.shape[1]
 
-        q = (xn @ self.wq.to(dt)).reshape(b, s, h, dh).transpose(1, 2)
-        k = (kv_in @ self.wk.to(dt)).reshape(b, lk, hk, dh).transpose(1, 2)
-        v = (kv_in @ self.wv.to(dt)).reshape(b, lk, hk, dh).transpose(1, 2)
+        q = (xn @ wq.to(dt)).reshape(b, s, h, dh).transpose(1, 2)
+        k = (kv_in @ wk.to(dt)).reshape(b, lk, hk, dh).transpose(1, 2)
+        v = (kv_in @ wv.to(dt)).reshape(b, lk, hk, dh).transpose(1, 2)
+        if split:
+            shard_axes.constrain(q, "batch", "heads", "seq", None, shape=(
+                shard_axes.global_dim(b, "batch"), cfg.n_heads, s, dh))
         if not is_cross:
             q = rope(q, positions[None, None, :], cfg.rope_theta)
             k = rope(k, positions[None, None, :], cfg.rope_theta)
@@ -334,8 +365,32 @@ class Attention(nn.Module):
                 new_cache = _build_prefill_cache(cfg, k, v, positions,
                                                  cache_len or k.shape[2])
 
-        y = o.transpose(1, 2).reshape(b, s, h * dh) @ self.wo.to(dt)
+        y = o.transpose(1, 2).reshape(b, s, h * dh) @ wo.to(dt)
+        if split:
+            y = array_ops.reduce_from_axis(y, mesh, "model")
         return y, new_cache
+
+    def _mesh_weights(self, mesh):
+        """``(wq, wk, wv, wo, split)`` on a mesh: the local heads' blocks
+        when every projection splits on head boundaries over ``model``
+        (``split``), else each split projection gathered whole for a
+        replicated attention (every rank keeps its slice's gradient)."""
+        cfg = self.cfg
+        h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        m = mesh.get("model", 1)
+        wq, wk, wv, wo = self.wq, self.wk, self.wv, self.wo
+        if (m > 1 and h % m == 0 and hk % m == 0
+                and wq.shape[1] == h * dh // m == wo.shape[0]
+                and wk.shape[1] == hk * dh // m == wv.shape[1]):
+            return wq, wk, wv, wo, True
+
+        def whole(w, dim, n):
+            if w.shape[dim] == n:
+                return w
+            return array_ops.axis_all_gather(w, mesh, "model", dim,
+                                             backward="slice")
+        return (whole(wq, 1, h * dh), whole(wk, 1, hk * dh),
+                whole(wv, 1, hk * dh), whole(wo, 0, h * dh), False)
 
 
 # ---------------------------------------------------------------------------
@@ -450,14 +505,24 @@ class MLP(nn.Module):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         self.eps = cfg.norm_eps
+        self.d_ff = f
         self.w_gate = dense_param((d, f), generator, dtype, device)
         self.w_in = dense_param((d, f), generator, dtype, device)
         self.w_out = dense_param((f, d), generator, dtype, device, fan_in=f)
         self.norm = RMSNorm(d, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """On a mesh whose ``model`` axis splits ``d_ff``: local ``ff``
+        columns, one all-reduce after ``w_out``."""
         dt = x.dtype
         xn = self.norm(x, self.eps)
+        mesh = shard_axes.group_mesh()
+        tp = mesh is not None and self.w_gate.shape[1] != self.d_ff
+        if tp:
+            xn = array_ops.copy_to_axis(xn, mesh, "model")
         g = torch.nn.functional.silu(xn @ self.w_gate.to(dt))
         u = xn @ self.w_in.to(dt)
-        return (g * u) @ self.w_out.to(dt)
+        y = (g * u) @ self.w_out.to(dt)
+        if tp:
+            y = array_ops.reduce_from_axis(y, mesh, "model")
+        return y

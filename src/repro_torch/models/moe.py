@@ -16,8 +16,18 @@ The combine sums each token's k rows in the order the reference's
 scatter-add applies them (ascending expert id), so it is the same on
 every run; an atomic ``index_add_`` on the card would not be.
 
-The reference's expert-parallel ``shard_map`` path needs a device mesh and
-waits for shards across cards.
+On a mesh of ranks (a bound ``sharding.axes.GroupMesh``) the MoE takes
+the reference's dispatch (``moe_ffn``): expert parallel over ``model``
+when it divides the expert count (``_moe_ffn_ep_shardmap``), else the
+expert-internal TP fallback (``_MOE_TP_RULES``, the einsum path over
+local ``ff`` columns).  Either way each rank packs buckets from its own
+``model``-replicated rows, runs its share of the expert work and joins
+ONE ``model`` all-reduce; the dispatch input and the gates enter through
+``copy_to_axis`` (their gradients are partial per rank), routing runs
+replicated.  The EP path's metrics are means over the DP axes of each
+rank's own — a different quantity from the einsum path's global means,
+as in the reference — and a decode-shaped input groups the *local*
+batch.  The TP fallback keeps the einsum path's global metrics.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..core import array_ops
+from ..sharding import axes as shard_axes
 from .layers import RMSNorm, dense_param
 
 METRICS = ("moe_aux_loss", "router_z_loss", "moe_dropped_frac")
@@ -57,10 +69,8 @@ def router_logits(xn: torch.Tensor, router: torch.Tensor,
     return logits
 
 
-def routing(xn: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
-    """Router logits → (top-k gates, top-k ids, aux loss, router z-loss),
-    all in float32."""
-    e = router.shape[1]
+def _top_k(xn: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """→ (router logits, gates, normalized top-k gates, top-k ids)."""
     k = cfg.experts_per_token
     logits = router_logits(xn, router, cfg)
     gates = torch.softmax(logits, dim=-1)
@@ -69,11 +79,25 @@ def routing(xn: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     top_g, top_i = torch.sort(gates, dim=-1, descending=True, stable=True)
     top_g, top_i = top_g[..., :k], top_i[..., :k]
     top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
-    me = gates.reshape(-1, e).mean(dim=0)
-    counts = torch.zeros((e,), dtype=torch.float32, device=xn.device)
+    return logits, gates, top_g, top_i
+
+
+def _expert_counts(top_i: torch.Tensor, e: int) -> torch.Tensor:
+    """How many of the chosen (token, slot) pairs each expert got."""
+    counts = torch.zeros((e,), dtype=torch.float32, device=top_i.device)
     counts.index_add_(0, top_i.reshape(-1),
-                      torch.ones(top_i.numel(), device=xn.device))
-    ce = counts / (top_i.numel() // k) / k
+                      torch.ones(top_i.numel(), device=top_i.device))
+    return counts
+
+
+def routing(xn: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Router logits → (top-k gates, top-k ids, aux loss, router z-loss),
+    all in float32."""
+    e = router.shape[1]
+    k = cfg.experts_per_token
+    logits, gates, top_g, top_i = _top_k(xn, router, cfg)
+    me = gates.reshape(-1, e).mean(dim=0)
+    ce = _expert_counts(top_i, e) / (top_i.numel() // k) / k
     aux = torch.sum(me * ce) * cfg.n_experts
     router_z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     return top_g, top_i, aux, router_z
@@ -110,6 +134,7 @@ class SharedExperts(nn.Module):
     def __init__(self, d: int, fs: int, generator: torch.Generator,
                  dtype: torch.dtype, device: torch.device):
         super().__init__()
+        self.fs = fs
         self.w_gate = dense_param((d, fs), generator, dtype, device)
         self.w_in = dense_param((d, fs), generator, dtype, device)
         self.w_out = dense_param((fs, d), generator, dtype, device, fan_in=fs)
@@ -144,14 +169,29 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        mesh = shard_axes.group_mesh()
+        if mesh is not None:
+            return self._forward_mesh(x, mesh)
         cfg = self.cfg
         b, s, d = x.shape
-        dt = x.dtype
-        e = self.router.shape[1]
-        k = cfg.experts_per_token
         xn = self.norm(x, cfg.norm_eps)
         top_g, top_i, aux, router_z = routing(xn, self.router, cfg)
+        y, dropped = self._experts(xn, top_g, top_i, self.router.shape[1])
+        if self.shared is not None:
+            y = y + self.shared(xn)
+        return y, {"moe_aux_loss": aux, "router_z_loss": router_z,
+                   "moe_dropped_frac": dropped}
 
+    def _experts(self, xn, top_g, top_i, e: int, lo: int = 0, hi=None):
+        """Group, pack, run experts ``lo..hi`` (this module's stacked
+        weights hold those) and combine → (y, dropped); a row of another
+        expert adds zero."""
+        cfg = self.cfg
+        b, s, d = xn.shape
+        dt = xn.dtype
+        k = cfg.experts_per_token
+        hi = e if hi is None else hi
+        wg, wi, wo = self.w_gate, self.w_in, self.w_out
         # groups: a batch row when sequences are long, the whole batch when
         # decoding
         if s >= 64:
@@ -164,15 +204,19 @@ class MoE(nn.Module):
         buf, slot, tok_idx, g_tok, ok = pack(xg, ig, gg, e, cap)
         dropped = 1.0 - ok.to(torch.float32).mean()
 
+        mine = buf[:, lo:hi]
         hidden = (torch.nn.functional.silu(
-            torch.einsum("gecd,edf->gecf", buf, self.w_gate.to(dt)))
-            * torch.einsum("gecd,edf->gecf", buf, self.w_in.to(dt)))
-        out = torch.einsum("gecf,efd->gecd", hidden, self.w_out.to(dt))
+            torch.einsum("gecd,edf->gecf", mine, wg.to(dt)))
+            * torch.einsum("gecd,edf->gecf", mine, wi.to(dt)))
+        out = torch.einsum("gecf,efd->gecd", hidden, wo.to(dt))
+        out = out.reshape(g, (hi - lo) * cap, d)
+        if hi - lo != e:
+            out = torch.cat([out.new_zeros((g, lo * cap, d)), out,
+                             out.new_zeros((g, (e - hi) * cap, d))], dim=1)
 
         # combine: each sorted row back to its token, weighted
         safe = torch.clamp(slot, max=e * cap - 1)
-        y_tok = torch.gather(out.reshape(g, e * cap, d), 1,
-                             safe[..., None].expand(g, tg * k, d))
+        y_tok = torch.gather(out, 1, safe[..., None].expand(g, tg * k, d))
         y_tok = torch.where(ok[..., None], y_tok, 0.0) * g_tok[..., None]
         # sorted position of each (token, choice): the rows of a token in
         # ascending expert id, the order the reference's scatter-add
@@ -183,8 +227,75 @@ class MoE(nn.Module):
         y = rows[:, :, 0]
         for j in range(1, k):
             y = y + rows[:, :, j]
-        y = y.reshape(b, s, d)
+        return y.reshape(b, s, d), dropped
+
+    # -- on a mesh of ranks -------------------------------------------------
+    def _forward_mesh(self, x: torch.Tensor, mesh):
+        """The reference's ``moe_ffn`` dispatch on this rank's rows: EP
+        when ``model`` divides the experts, else the TP fallback."""
+        cfg = self.cfg
+        e = self.router.shape[1]
+        m = mesh.get("model", 1)
+        dp = shard_axes.batch_axes()
+        xn = self.norm(x, cfg.norm_eps)
+        xin = array_ops.copy_to_axis(xn, mesh, "model")
+        ep = "model" in mesh and e % m == 0
+        if ep:
+            top_g, top_i, aux, router_z = routing(xn, self.router, cfg)
+            gates = array_ops.copy_to_axis(top_g, mesh, "model")
+            lo = mesh.coords.get("model", 0) * (e // m)
+            y, dropped = self._experts(xin, gates, top_i, e, lo,
+                                       lo + e // m)
+        else:
+            if x.shape[1] < 64 and shard_axes.axes_size(mesh, dp) > 1:
+                raise NotImplementedError(
+                    "the MoE's expert-TP fallback groups a decode-shaped "
+                    "batch across data-parallel ranks; not ported (ROADMAP "
+                    "Queue 1 item 11b)")
+            top_g, top_i, aux, router_z = _global_routing(xn, self.router,
+                                                          cfg, mesh, dp)
+            gates = array_ops.copy_to_axis(top_g, mesh, "model")
+            y, dropped = self._experts(xin, gates, top_i, e)
         if self.shared is not None:
-            y = y + self.shared(xn)
-        return y, {"moe_aux_loss": aux, "router_z_loss": router_z,
+            sh = self.shared
+            if sh.w_gate.shape[1] != sh.fs:     # ff split over model
+                y = y + sh(xin)
+                y = array_ops.reduce_from_axis(y, mesh, "model")
+            else:
+                y = array_ops.reduce_from_axis(y, mesh, "model") + sh(xn)
+        else:
+            y = array_ops.reduce_from_axis(y, mesh, "model")
+        metrics = {"moe_aux_loss": aux, "router_z_loss": router_z,
                    "moe_dropped_frac": dropped}
+        n = shard_axes.axes_size(mesh, dp)
+        if n > 1:
+            # EP: each rank's own metrics, meaned over the DP axes; the
+            # fallback's aux and z are global already, its dropped share a
+            # mean of equal groups
+            keys = METRICS if ep else ("moe_dropped_frac",)
+            for key in keys:
+                v = metrics[key]
+                for a in dp:
+                    v = array_ops.reduce_from_axis(v, mesh, a)
+                metrics[key] = v / n
+        return y, metrics
+
+
+def _global_routing(xn, router, cfg: ModelConfig, mesh, dp):
+    """:func:`routing` of the einsum path over every DP rank's rows: the
+    gates, expert counts and squared log-normalizers summed over the DP
+    axes (each rank's rows the same count), so aux and z are the global
+    batch's."""
+    e = router.shape[1]
+    k = cfg.experts_per_token
+    logits, gates, top_g, top_i = _top_k(xn, router, cfg)
+    g_sum = gates.reshape(-1, e).sum(dim=0)
+    counts = _expert_counts(top_i, e)
+    z_sum = torch.sum(torch.square(torch.logsumexp(logits, dim=-1)))
+    for a in dp:
+        g_sum = array_ops.reduce_from_axis(g_sum, mesh, a)
+        z_sum = array_ops.reduce_from_axis(z_sum, mesh, a)
+        counts = array_ops.axis_all_reduce(counts, mesh, a)
+    total = gates.reshape(-1, e).shape[0] * shard_axes.axes_size(mesh, dp)
+    aux = torch.sum((g_sum / total) * (counts / total / k)) * cfg.n_experts
+    return top_g, top_i, aux, z_sum / total

@@ -15,6 +15,18 @@ loop, and a cache is a list of per-layer dicts in the same order.
 ``LM.forward`` its ``apply_lm``: ``tokens (B, S) → (logits (B, S, V)``
 in float32, the new cache in ``prefill`` and ``decode``, the MoE metrics
 summed over the layers``)``.
+
+On a mesh of ranks (a bound ``sharding.axes.GroupMesh``, training mode)
+the model's parameters are this rank's blocks (``sharding/partition.py``)
+and ``LM.forward`` takes this rank's batch rows: the embedding goes
+through ``embed_lookup``, each layer's FSDP blocks (:attr:`LM.fsdp`) are
+all-gathered over ``data`` just before the layer runs — inside its remat
+group, so the backward gathers them again and reduce-scatters their
+gradients — the layers run tensor parallel over ``model``
+(``layers.py``, ``moe.py``), and the head is vocab-split over ``model``:
+the logits are this rank's vocab columns.  Only dense and MoE GQA
+decoders train on a mesh; every other family raises, naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -26,7 +38,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core import array_ops
 from ..core.context import DeviceLike, resolve_device
+from ..sharding import axes as shard_axes
 from . import ssm, xlstm
 from .layers import (MLA, MLP, Attention, Cache, RMSNorm, compute_dtype,
                      dense_param)
@@ -109,32 +123,51 @@ class Layer(nn.Module):
 
 
 def build_stack(cfg: ModelConfig, cross: bool, generator: torch.Generator,
-                dtype: torch.dtype, device: torch.device) -> nn.ModuleList:
-    return nn.ModuleList(
-        Layer(cfg, kind, i, cross, generator, dtype, device)
-        for _ in range(cfg.n_groups)
-        for i, kind in enumerate(cfg.block_pattern))
+                dtype: torch.dtype, device: torch.device, keep=None,
+                prefix: str = "layers") -> nn.ModuleList:
+    """The stack's layers in order; ``keep(f"{prefix}.{j}", layer)`` is
+    called on each layer as soon as it is drawn (see :class:`LM`)."""
+    layers = nn.ModuleList()
+    for _ in range(cfg.n_groups):
+        for i, kind in enumerate(cfg.block_pattern):
+            layer = Layer(cfg, kind, i, cross, generator, dtype, device)
+            if keep is not None:
+                keep(f"{prefix}.{len(layers)}", layer)
+            layers.append(layer)
+    return layers
 
 
 def apply_stack(layers: nn.ModuleList, x, *, mode: str, caches, positions,
                 enc_out=None, causal: bool = True, cache_len: int = 0,
-                remat_group: int = 0):
+                remat_group: int = 0, fetch=None):
     """→ (x, per-layer new caches, metrics summed over the layers).
 
     ``remat_group`` > 0 (training with ``cfg.remat``, grad enabled):
     each run of that many consecutive layers — one repetition of the
     block pattern, the reference's scan step under ``jax.checkpoint`` —
     keeps only its input for the backward pass and recomputes the rest.
+    ``fetch(j)``, when given, returns the tensors layer ``j`` runs with in
+    place of its own parameters (by name within the layer): the FSDP
+    gathers, made inside the remat group.  The mesh binding in force is
+    re-entered there, since a recompute may run on autograd's thread.
     """
+    binding = (shard_axes.current_mesh(), shard_axes.current_rules())
+
     def run(x, lo, hi):
         ncs, ms = [], []
-        for j in range(lo, hi):
-            x, nc, m = layers[j](
-                x, mode=mode, cache=caches[j] if caches is not None else None,
-                positions=positions, enc_out=enc_out, causal=causal,
-                cache_len=cache_len)
-            ncs.append(nc)
-            ms.append(m)
+        with shard_axes.logical_binding(*binding):
+            for j in range(lo, hi):
+                kw = dict(mode=mode,
+                          cache=caches[j] if caches is not None else None,
+                          positions=positions, enc_out=enc_out,
+                          causal=causal, cache_len=cache_len)
+                if fetch is None:
+                    x, nc, m = layers[j](x, **kw)
+                else:
+                    x, nc, m = torch.func.functional_call(
+                        layers[j], fetch(j), (x,), kw)
+                ncs.append(nc)
+                ms.append(m)
         return x, ncs, ms
 
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
@@ -166,32 +199,58 @@ def remat_layers(cfg: ModelConfig) -> int:
     return cfg.group_size if cfg.remat and torch.is_grad_enabled() else 0
 
 
+def refuse_on_mesh(cfg: ModelConfig) -> None:
+    """Families outside the mesh slice raise, naming their ROADMAP item."""
+    kinds = set(cfg.block_pattern) - {"attn"}
+    what = ("MLA attention" if cfg.attention == "mla" else
+            f"{'/'.join(sorted(kinds))} mixers" if kinds else
+            "an encoder-decoder" if cfg.is_encoder_decoder else
+            f"a {cfg.frontend} frontend" if cfg.frontend else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} on a mesh of ranks is not ported (ROADMAP "
+            f"Queue 1 item 11b); only dense and MoE GQA decoders train on "
+            f"a mesh")
+
+
 class LM(nn.Module):
     """The reference's LM with its parameters drawn from ``generator`` on
     ``device`` (``None``: the card), stored in ``param_dtype``: the
     compute dtype ``cfg.dtype`` by default (serving), float32 masters for
     training (``cfg.param_dtype``).  Leaves the reference uses uncast are
-    float32 either way."""
+    float32 either way.
+
+    ``keep(prefix, module)``, when given, is called as each part is drawn
+    — each layer (``layers.3``), then the model itself (``""``) — and may
+    replace the module's new parameters (a rank keeping its blocks of
+    each drawn leaf, so the full model never exists at once).  The draws
+    are the same either way.
+
+    :attr:`fsdp` maps a parameter's name to the dimension its block splits
+    over ``data`` (set by the sharded train step; empty otherwise)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device: DeviceLike = None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, keep=None):
         super().__init__()
         dev = resolve_device(device)
         dt = param_dtype or compute_dtype(cfg)
         self.cfg = cfg
+        self.fsdp: Dict[str, int] = {}
         self.embed = dense_param((cfg.vocab_size, cfg.d_model), generator, dt,
                                  dev, fan_in=cfg.d_model)
         self.final_norm = RMSNorm(cfg.d_model, dt, dev)
         self.layers = build_stack(cfg, cfg.is_encoder_decoder, generator, dt,
-                                  dev)
+                                  dev, keep)
         self.lm_head = (None if cfg.tie_embeddings else
                         dense_param((cfg.d_model, cfg.vocab_size), generator,
                                     dt, dev))
         if cfg.is_encoder_decoder:
             self.encoder = build_stack(encoder_config(cfg), False, generator,
-                                       dt, dev)
+                                       dt, dev, keep, "encoder")
             self.enc_norm = RMSNorm(cfg.d_model, dt, dev)
+        if keep is not None:
+            keep("", self)
 
     @classmethod
     def from_state_dict(cls, cfg: ModelConfig, state_dict,
@@ -236,8 +295,18 @@ class LM(nn.Module):
         position's logits only, so the head runs on one row.
         """
         cfg = self.cfg
+        mesh = shard_axes.group_mesh()
+        if mesh is not None:
+            refuse_on_mesh(cfg)
+            if mode != "train" or cache is not None or last_logit_only:
+                raise NotImplementedError(
+                    "an LM on a mesh of ranks trains only; serving across "
+                    "ranks is ROADMAP Queue 1 item 11b")
         dtype = compute_dtype(cfg)
-        x = self.embed[tokens].to(dtype)
+        b = tokens.shape[0]
+        x = shard_axes.embed_lookup(self.embed, tokens, cfg.d_model).to(dtype)
+        shard_axes.constrain(x, "batch", "seq", "embed", shape=(
+            shard_axes.global_dim(b, "batch"), x.shape[1], cfg.d_model))
 
         enc_out = None
         if cfg.is_encoder_decoder:
@@ -253,18 +322,78 @@ class LM(nn.Module):
         x, layer_caches, aux = apply_stack(
             self.layers, x, mode=mode, caches=cache, positions=positions,
             enc_out=enc_out, cache_len=cache_len,
-            remat_group=remat_layers(cfg) if mode == "train" else 0)
+            remat_group=remat_layers(cfg) if mode == "train" else 0,
+            fetch=None if mesh is None else self._fetch(mesh))
 
         if last_logit_only:
             x = x[:, -1:]
         x = self.final_norm(x, cfg.norm_eps)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        split = False
+        if mesh is None:
+            head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        else:
+            head, split = self._head(mesh)
+            if split:       # this rank's vocab columns
+                x = array_ops.copy_to_axis(
+                    x, mesh, shard_axes.current_rules()["vocab"])
         logits = x @ head.to(dtype)
+        if split:
+            shard_axes.constrain(logits, "batch", "seq", "vocab", shape=(
+                shard_axes.global_dim(b, "batch"), x.shape[1],
+                cfg.vocab_size))
         new_cache = None
         if mode in ("prefill", "decode"):
             new_cache = Caches(layer_caches)
             new_cache.enc_out = enc_out
         return logits.to(torch.float32), new_cache, aux
+
+    # -- on a mesh of ranks -------------------------------------------------
+    def _gathered(self, name: str, p: torch.Tensor, mesh) -> torch.Tensor:
+        """``p``'s FSDP blocks gathered over ``data`` (``p`` itself when
+        it is not split there)."""
+        dim = self.fsdp.get(name)
+        if dim is None:
+            return p
+        return array_ops.axis_all_gather(p, mesh, "data", dim)
+
+    def _fetch(self, mesh, prefix: str = "layers"):
+        """Layer ``j``'s gathered FSDP leaves, by name within the layer."""
+        def fetch(j):
+            pre = f"{prefix}.{j}."
+            return {name[len(pre):]: self._gathered(name,
+                                                    self.get_parameter(name),
+                                                    mesh)
+                    for name in self.fsdp if name.startswith(pre)}
+        return fetch
+
+    def _head(self, mesh) -> Tuple[torch.Tensor, bool]:
+        """The head ``(d, V/M)`` over the vocab axis's ``M`` ranks when
+        ``M`` divides the vocabulary (→ ``True``), else ``(d, V)``."""
+        cfg = self.cfg
+        rules = shard_axes.current_rules()
+        v_axis, d_axis = rules.get("vocab"), rules.get("embed_d")
+        m = mesh.get(v_axis, 1) if isinstance(v_axis, str) else 1
+        split = m > 1 and cfg.vocab_size % m == 0
+        if not cfg.tie_embeddings:
+            head = self._gathered("lm_head", self.lm_head, mesh)
+            return head, head.shape[1] != cfg.vocab_size
+        e = self.embed
+        if e.shape[1] != cfg.d_model:        # d split over embed_d
+            if split and d_axis != v_axis:
+                raise NotImplementedError(
+                    f"a tied head needs embed_d and vocab on one axis, not "
+                    f"{d_axis!r} and {v_axis!r}")
+            # each rank's vocab rows feed its own logits: gradients summed
+            e = array_ops.axis_all_gather(
+                e, mesh, d_axis, 1,
+                backward="reduce_scatter" if split else "slice")
+        elif split:
+            # the replicated table's rows feed different ranks' logits
+            e = array_ops.copy_to_axis(e, mesh, v_axis)
+        if split:
+            v = cfg.vocab_size // m
+            e = e.narrow(0, mesh.coords[v_axis] * v, v)
+        return e.T, split
 
 
 def init_group_cache(cfg: ModelConfig, batch: int, cache_len: int,

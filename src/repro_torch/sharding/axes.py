@@ -8,16 +8,24 @@ an ordered mapping from axis name to size (``{"pod": 2, "data": 16,
 "model": 16}``, what ``AbstractMesh`` carries), and a spec is a tuple with
 ``PartitionSpec``'s entries — ``None``, an axis name, or a tuple of names.
 
-Shards across cards are ROADMAP Queue 1 item 11.  Until then nothing can
-place a tensor on a mesh: unbound, :func:`constrain` is the identity and
-:func:`embed_lookup` the plain gather, as in the reference; under a
-binding both raise ``NotImplementedError`` instead of doing nothing.
+A :class:`GroupMesh` is such a mapping that also carries one
+``torch.distributed`` sub-group per axis and this rank's coordinate on
+each (``launch/mesh.py:mesh_context`` builds it).  Bound, it places
+tensors: every rank holds its blocks, and the model code runs its
+collectives over the axes' groups.  :func:`constrain` then checks a local
+tensor's shape against the spec (there is no partitioner to reshard, so a
+mismatch raises), and :func:`embed_lookup` is the reference's shard-local
+gather.  Unbound, :func:`constrain` is the identity and
+:func:`embed_lookup` the plain gather, as in the reference.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
+
+from ..core import array_ops
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Mesh = Mapping[str, int]
@@ -42,8 +50,34 @@ DEFAULT_RULES: Dict[str, MeshAxes] = {
     "state": None,
 }
 
-_NO_GROUP = ("the port has no process group to place a tensor on a mesh "
-             "yet (ROADMAP Queue 1 item 11)")
+
+
+class GroupMesh(Mapping):
+    """A mesh of ranks: ``{axis: size}`` in mesh order, plus the
+    ``torch.distributed`` sub-group of each axis (``None`` for an axis of
+    size 1: nothing to exchange) and this rank's coordinate on it.
+
+    Rank ``r``'s coordinates are ``r`` unravelled row-major over the axes,
+    as ``jax.make_mesh`` lays devices out: on ``{"data": 2, "model": 2}``
+    ranks 0 and 1 share a data coordinate and form one ``model`` group."""
+
+    def __init__(self, sizes: Mapping[str, int], groups: Mapping,
+                 coords: Mapping[str, int]):
+        self.sizes = dict(sizes)
+        self.groups = dict(groups)
+        self.coords = dict(coords)
+
+    def __getitem__(self, axis: str) -> int:
+        return self.sizes[axis]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.sizes)
+
+    def __len__(self) -> int:
+        return len(self.sizes)
+
+    def __repr__(self) -> str:
+        return f"GroupMesh({self.sizes}, coords={self.coords})"
 
 
 class _Binding(threading.local):
@@ -74,6 +108,11 @@ def current_mesh() -> Optional[Mesh]:
     return _BINDING.mesh
 
 
+def current_rules() -> Dict[str, MeshAxes]:
+    """The bound rules (``DEFAULT_RULES`` unbound)."""
+    return dict(_BINDING.rules)
+
+
 def spec_for(logical_axes: Sequence[Optional[str]]) -> tuple:
     """Translate logical axis names to a spec under the current rules; a
     mesh axis already used by an earlier dimension is dropped."""
@@ -100,20 +139,101 @@ def spec_for(logical_axes: Sequence[Optional[str]]) -> tuple:
     return tuple(parts)
 
 
-def constrain(x, *logical_axes: Optional[str]):
-    """Place ``x`` by logical axes: the identity when unbound."""
-    if _BINDING.mesh is None:
+def group_mesh() -> Optional[GroupMesh]:
+    """The bound :class:`GroupMesh`, or ``None`` unbound; a bound mesh of
+    sizes alone cannot place a tensor and raises."""
+    mesh = _BINDING.mesh
+    if mesh is None or isinstance(mesh, GroupMesh):
+        return mesh
+    raise TypeError(f"the bound mesh {dict(mesh)} has no process groups: "
+                    f"build one with repro_torch.launch.mesh.mesh_context")
+
+
+def entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axes_size(mesh: Mesh, axes: MeshAxes) -> int:
+    """The number of blocks ``axes`` (one spec entry) split a dim into."""
+    return math.prod(mesh.get(a, 1) for a in entry_axes(axes))
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The bound mesh's data-parallel axes: those ``batch`` maps to."""
+    return entry_axes(spec_for(["batch"])[0])
+
+
+def global_dim(n: int, logical: Optional[str]) -> int:
+    """The global size of a dimension of ``logical`` axis whose block on
+    this rank is ``n`` (``n`` unbound)."""
+    mesh = _BINDING.mesh
+    if mesh is None:
+        return n
+    return n * axes_size(mesh, spec_for([logical])[0])
+
+
+def local_shape(shape: Sequence[int], spec: Sequence[MeshAxes],
+                mesh: Mesh) -> Tuple[int, ...]:
+    """The block of a ``shape`` tensor each rank holds under ``spec``; a
+    sharded dimension that does not divide raises."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for dim, axes in zip(shape, spec):
+        n = axes_size(mesh, axes)
+        if dim % n:
+            raise ValueError(f"dimension {dim} does not split over {axes} "
+                             f"({n} blocks)")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def constrain(x, *logical_axes: Optional[str], shape=None):
+    """Place ``x`` by logical axes: the identity when unbound.
+
+    Bound, ``x`` is this rank's block of a tensor of global ``shape``;
+    its shape must be the block ``spec_for(logical_axes)`` gives, or this
+    raises (nothing reshards a tensor behind the model's back)."""
+    mesh = _BINDING.mesh
+    if mesh is None:
         return x
-    raise NotImplementedError(f"constrain{spec_for(logical_axes)}: "
-                              f"{_NO_GROUP}")
+    if shape is None:
+        raise ValueError(f"constrain{tuple(logical_axes)} under a mesh needs "
+                         f"the tensor's global shape")
+    want = local_shape(shape, spec_for(logical_axes), mesh)
+    if tuple(x.shape) != want:
+        raise ValueError(f"constrain{tuple(logical_axes)}: a block of "
+                         f"{tuple(x.shape)}, the spec "
+                         f"{spec_for(logical_axes)} on {dict(mesh)} places "
+                         f"{want} of {tuple(shape)}")
+    return x
 
 
-def embed_lookup(embed, tokens):
-    """The embedding gather: ``embed[tokens]`` when unbound (the
-    reference's shard-local gather needs a mesh of cards)."""
-    if _BINDING.mesh is None:
+def embed_lookup(embed, tokens, d_model: Optional[int] = None):
+    """The embedding gather: ``embed[tokens]`` when unbound.
+
+    Under a :class:`GroupMesh` binding it is the reference's shard-local
+    gather: ``embed`` is this rank's block of the ``(V, d_model)`` table
+    (``d_model`` split over the ``embed_d`` axis when it divides, vocab
+    replicated) and ``tokens`` this rank's batch rows.  Each rank gathers
+    its d-slice for its own rows, and one all-gather over the ``embed_d``
+    axis makes the result whole, replicated over that axis.  Backward is
+    the local scatter-add: the replicated consumers hand every rank the
+    whole gradient, and each keeps its own d-slice."""
+    mesh = group_mesh()
+    if mesh is None:
         return embed[tokens]
-    raise NotImplementedError(f"embed_lookup: {_NO_GROUP}")
+    if d_model is None:
+        raise ValueError("embed_lookup under a mesh needs d_model")
+    d_axis = _BINDING.rules.get("embed_d")
+    if isinstance(d_axis, tuple):
+        d_axis = d_axis[0] if d_axis else None
+    if d_axis is None or d_axis not in mesh or d_model % mesh[d_axis]:
+        return embed[tokens]
+    return array_ops.axis_all_gather(embed[tokens], mesh, d_axis, dim=-1,
+                                     backward="slice")
 
 
 def divisible(n: int, axis: MeshAxes) -> bool:

@@ -22,8 +22,9 @@ from __future__ import annotations
 import math
 from typing import Dict, Mapping, Optional, Tuple
 
+import torch
+
 from ..configs.base import ModelConfig
-from ..models.transformer import Caches
 from . import axes as axes_mod
 from .axes import Mesh
 
@@ -194,6 +195,8 @@ def cache_specs(cache, cfg: ModelConfig, mesh: Mesh, rules=None):
     For archs whose KV-head count doesn't divide the model axis, the cache
     *length* dimension is model-sharded instead (sequence-sharded KV).
     """
+    from ..models.transformer import Caches
+
     bspec = batch_spec(mesh, rules)
     b_axes = bspec[0] if bspec else None
     out = Caches({k: _cache_spec(k, getattr(v, "shape", ()), b_axes, mesh)
@@ -201,3 +204,60 @@ def cache_specs(cache, cfg: ModelConfig, mesh: Mesh, rules=None):
     if getattr(cache, "enc_out", None) is not None:
         out.enc_out = (b_axes, None, None)  # (B, F, D)
     return out
+
+
+# ---------------------------------------------------------------------------
+# placing a state dict on a mesh of ranks
+# ---------------------------------------------------------------------------
+def block_index(entry, mesh) -> int:
+    """This rank's block along a dimension split over ``entry``'s axes:
+    its coordinates on them, row-major (the first axis outermost)."""
+    i = 0
+    for a in axes_mod.entry_axes(entry):
+        i = i * mesh[a] + mesh.coords[a]
+    return i
+
+
+def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the global ``x`` under ``spec``."""
+    for dim, entry in enumerate(spec):
+        n = axes_mod.axes_size(mesh, entry)
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, block_index(entry, mesh) * size, size)
+    return x
+
+
+def shard_params(full: Mapping[str, torch.Tensor], specs: Mapping[str, tuple],
+                 mesh) -> Dict[str, torch.Tensor]:
+    """The global leaves ``full`` → this rank's blocks on ``mesh`` (a
+    ``GroupMesh``), as copies (a leaf whose spec splits no dimension is
+    copied whole: replicated)."""
+    return {k: shard_tensor(v, specs[k], mesh).clone(
+        memory_format=torch.contiguous_format) for k, v in full.items()}
+
+
+def gather_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """A copy of the global tensor from every rank's block ``x`` (a
+    collective over the axes ``spec`` names; no gradient)."""
+    from ..core import array_ops
+
+    x = x.detach().clone()
+    for dim, entry in enumerate(spec):
+        # innermost axis first: its blocks are adjacent
+        for a in reversed(axes_mod.entry_axes(entry)):
+            x = array_ops.axis_all_gather(x, mesh, a, dim=dim)
+    return x
+
+
+def gather_params(local: Mapping[str, torch.Tensor],
+                  specs: Mapping[str, tuple], mesh) -> Dict[str, torch.Tensor]:
+    """:func:`shard_params` the other way: every rank's blocks → the
+    global leaves on every rank (for tests and checks)."""
+    return {k: gather_tensor(v, specs[k], mesh) for k, v in local.items()}
+
+
+def sharded_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a spec splits a tensor over (it is replicated over
+    the others)."""
+    return tuple(a for entry in spec for a in axes_mod.entry_axes(entry))

@@ -12,6 +12,13 @@ reference's leaf, whose decoder and encoder leaves carry a leading
 ``n_groups`` axis: a per-layer norm scale, ``conv_b``, ``d_skip`` or
 ``dt_bias`` decays there and so decays here; ``final_norm.scale`` and
 ``enc_norm.scale`` do not (``models.params.reference_ndim``).
+
+On a mesh of ranks (the sharded train step) the leaves are this rank's
+blocks: the update is elementwise, and the clipping norm sums each
+leaf's *global* elements once — the blocks' sums of squares folded in
+rank order over the axes the leaf is split over, a leaf replicated over
+an axis counted once.  ``decays`` reads the reference's rank, which a
+block shares.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
 
+from ..core import array_ops
 from ..models.params import reference_ndim
 
 Tree = Dict[str, torch.Tensor]
@@ -67,10 +75,25 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
                        cfg.learning_rate * cos)
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(leaves, split=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares.
+
+    On a mesh, ``leaves`` are blocks and ``split[i]`` the axes leaf ``i``
+    is split over: its block sums are folded over those axes, in rank
+    order (every rank ends with the same bits)."""
+    sums = torch.stack([torch.sum(torch.square(x.to(torch.float32)))
+                        for x in leaves])
+    if mesh is not None:
+        for axis in mesh:
+            on = torch.tensor([axis in sp for sp in split],
+                              device=sums.device)
+            if mesh[axis] > 1 and bool(on.any()):
+                every = array_ops.axis_all_gather(sums[None], mesh, axis)
+                total = every[0]
+                for row in every[1:]:
+                    total = total + row
+                sums = torch.where(on, total, sums)
+    return torch.sqrt(torch.sum(sums))
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -82,11 +105,15 @@ def decays(name: str, p: torch.Tensor) -> bool:
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: OptState,
+                 split=None, mesh=None,
                  ) -> Tuple[Mapping[str, torch.Tensor], OptState,
                             Dict[str, torch.Tensor]]:
     """One AdamW step → (params, new state, ``{grad_norm, lr}``); the
-    masters and the moments are updated in place."""
-    gnorm = global_norm(grads[k] for k in params)
+    masters and the moments are updated in place.  On a mesh, ``split``
+    maps each leaf to the axes its block splits over (:func:`global_norm`)."""
+    gnorm = global_norm([grads[k] for k in params],
+                        None if split is None else [split[k] for k in params],
+                        mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     count = state.count + 1

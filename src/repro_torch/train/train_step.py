@@ -9,9 +9,19 @@ storage of its own), so the forward, every rematerialized recompute and
 the backward read exactly the state's tensors.  The forward runs in
 ``cfg.dtype`` (the casts at every use); gradients are float32.
 
-The reference's ``make_sharded_train_step`` (``pjit`` over a device
-mesh) is not ported: it waits for the mesh shardings and shards across
-cards.
+:func:`make_sharded_train_step` is the reference's ``pjit`` step on a
+mesh of ranks (``sharding.axes.GroupMesh``): each rank holds its blocks
+of the masters and moments, FSDP over ``data`` x tensor/expert parallel
+over ``model`` as ``sharding/partition.py:param_specs`` places them, and
+steps on its data-parallel rows of the global batch (:func:`local_batch`).
+The forward gathers each layer's FSDP blocks just before the layer runs,
+under the same remat by layer as the one-card step, and the backward
+reduce-scatters their gradients; the gradients of leaves that are not
+split over a DP axis are summed over it explicitly.  The cross-entropy
+runs on vocab-split logits (max and sum over ``model``) and the loss and
+accuracy divide by the global count of labels ≥ 0, so the step is the
+one-card step's function.  The masters are not cast before the gathers
+(``cast_params_for_compute``), as the reference's sharded step does not.
 """
 from __future__ import annotations
 
@@ -23,10 +33,13 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..core import array_ops
 from ..core.context import DeviceLike, resolve_device
 from ..models.moe import METRICS
 from ..models.params import params_from_jax, reference_ndim
 from ..models.transformer import LM
+from ..sharding import axes as shard_axes
+from ..sharding import partition
 from .optimizer import OptimizerConfig, OptState, adamw_update, init_opt_state
 
 
@@ -118,16 +131,42 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     the one-hot tensor (1.6 GB of float32 at 8 x 1024 x 49152).
     Accuracy compares the gold logit with the row max, as there.
     """
+    nll, correct, count = cross_entropy_sums(logits, labels)
+    denom = torch.clamp(count, min=1)
+    return nll / denom, correct / denom
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
+                       mesh=None, vocab: Optional[int] = None):
+    """The masked CE's sums over ``logits``' rows → (sum of nll, count of
+    rows whose gold logit is the row max, count of labels ≥ 0).
+
+    With ``mesh``, ``logits`` may be this rank's columns of a ``vocab``
+    split over the vocab axis (fewer than ``vocab``): the gold logit and
+    the normalizer's sum of exponentials are summed over the axis, the
+    row max is its max (no gradient, as the reference's ``logsumexp``)."""
     mask = labels >= 0
     safe = torch.clamp(labels, min=0).to(torch.int64)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    logz = torch.logsumexp(logits, dim=-1)
+    vl = logits.shape[-1]
+    if mesh is None or vl == vocab:
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        logz = torch.logsumexp(logits, dim=-1)
+        row_max = torch.amax(logits, dim=-1)
+    else:
+        axis = shard_axes.current_rules()["vocab"]
+        local = safe - mesh.coords[axis] * vl
+        mine = (local >= 0) & (local < vl)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(local, 0, vl - 1)[..., None])[..., 0]
+        gold = array_ops.reduce_from_axis(torch.where(mine, gold, 0.0),
+                                          mesh, axis)
+        row_max = array_ops.axis_all_reduce(
+            torch.amax(logits.detach(), dim=-1), mesh, axis, "max")
+        se = torch.sum(torch.exp(logits - row_max[..., None]), dim=-1)
+        logz = row_max + torch.log(array_ops.reduce_from_axis(se, mesh,
+                                                              axis))
     nll = (logz - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1)
-    loss = torch.sum(nll) / denom
-    row_max = torch.amax(logits, dim=-1)
-    acc = torch.sum((gold >= row_max) & mask) / denom
-    return loss, acc
+    return torch.sum(nll), torch.sum((gold >= row_max) & mask), mask.sum()
 
 
 _KEEP_F32 = ("router", "a_log", "dt_bias", "b_gates", "scale", "b")
@@ -220,3 +259,203 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return TrainState(params, opt), metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded step on a mesh of ranks
+# ---------------------------------------------------------------------------
+def meta_state(cfg: ModelConfig) -> TrainState:
+    """A state of meta tensors: the global shapes, no storage (the
+    template :func:`make_sharded_train_step` reads)."""
+    params = dict(skeleton(cfg).named_parameters())
+    return TrainState(params=params, opt=init_opt_state(params))
+
+
+def _state_of(params: Dict[str, torch.Tensor],
+              mu: Optional[Dict[str, torch.Tensor]] = None,
+              nu: Optional[Dict[str, torch.Tensor]] = None,
+              count: Optional[torch.Tensor] = None) -> TrainState:
+    masters = {k: nn.Parameter(v.detach().to(torch.float32),
+                               requires_grad=True) for k, v in params.items()}
+    zeros = init_opt_state(masters)
+    dev = next(iter(masters.values())).device
+    return TrainState(masters, OptState(
+        mu if mu is not None else zeros.mu,
+        nu if nu is not None else zeros.nu,
+        (count if count is not None else zeros.count).to(dev, torch.int32)))
+
+
+def init_sharded_state(cfg: ModelConfig, generator: torch.Generator, mesh,
+                       specs: Mapping[str, tuple],
+                       device: DeviceLike = None) -> TrainState:
+    """This rank's blocks of :func:`init_train_state`'s masters (zero
+    optimizer state): every rank draws the same global parameters from
+    ``generator``, layer by layer, and keeps its blocks, so the blocks are
+    the one-card init's bit for bit and no rank holds the whole model."""
+    kept: Dict[str, torch.Tensor] = {}
+
+    def keep(prefix: str, module: nn.Module) -> None:
+        for name, p in list(module.named_parameters()):
+            full = f"{prefix}.{name}" if prefix else name
+            if full in kept:
+                continue
+            kept[full] = partition.shard_tensor(
+                p.detach(), specs[full], mesh).clone()
+            owner, _, leaf = name.rpartition(".")
+            setattr(module.get_submodule(owner), leaf,
+                    nn.Parameter(kept[full], requires_grad=False))
+
+    LM(cfg, generator, device, param_dtype=torch.float32, keep=keep)
+    return _state_of(kept)
+
+
+def shard_state(state: TrainState, specs: Mapping[str, tuple], mesh,
+                device: DeviceLike = None) -> TrainState:
+    """A global state (say, :func:`train_state_from_jax`'s) → this rank's
+    trainable blocks on ``device``."""
+    dev = resolve_device(device)
+
+    def blocks(tree):
+        return {k: v.to(dev, torch.float32) for k, v in
+                partition.shard_params(tree, specs, mesh).items()}
+
+    return _state_of(blocks(state.params), blocks(state.opt.mu),
+                     blocks(state.opt.nu), state.opt.count)
+
+
+def gather_state(state: TrainState, specs: Mapping[str, tuple],
+                 mesh) -> TrainState:
+    """Every rank's blocks → the global state on every rank (for tests
+    and checks; a collective)."""
+    opt = state.opt
+    return TrainState(partition.gather_params(state.params, specs, mesh),
+                      OptState(partition.gather_params(opt.mu, specs, mesh),
+                               partition.gather_params(opt.nu, specs, mesh),
+                               opt.count))
+
+
+def local_batch(batch: Mapping[str, torch.Tensor], mesh,
+                micro_batches: int = 1) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch under the bound rules' batch
+    spec: micro-batch ``i`` of the global batch (rows ``i * B/m ..``, the
+    reference's split) gives each DP rank its block of ``B / (m * DP)``
+    rows, and the rank's micro-blocks follow each other.  With one
+    micro-batch that is the batch spec's block."""
+    dp = tuple(a for a in shard_axes.batch_axes() if a in mesh)
+    n = shard_axes.axes_size(mesh, dp)
+    i = partition.block_index(dp, mesh)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % (micro_batches * n):
+            raise ValueError(f"batch {k}: {v.shape[0]} rows do not split "
+                             f"into {micro_batches} micro-batches over "
+                             f"{n} data-parallel ranks")
+        rows = v.shape[0] // (micro_batches * n)
+        v = v.reshape((micro_batches, n, rows) + tuple(v.shape[1:]))
+        out[k] = v[:, i].reshape((micro_batches * rows,) + tuple(v.shape[3:]))
+    return out
+
+
+def _reduce_dp(x: torch.Tensor, mesh, dp) -> torch.Tensor:
+    """Sum over the DP axes; the identity backward (each rank
+    differentiates its own share)."""
+    for a in dp:
+        x = array_ops.reduce_from_axis(x, mesh, a)
+    return x
+
+
+def sharded_loss_fn(model: LM, cfg: ModelConfig, tcfg: TrainConfig, batch,
+                    mesh) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`loss_fn` on this rank's rows: the loss and accuracy over the
+    global batch's labels on every rank (the forward sums them over the
+    DP axes, the backward leaves each rank its own share)."""
+    dp = shard_axes.batch_axes()
+    logits, _, aux = model(batch["tokens"], mode="train")
+    nll, correct, count = cross_entropy_sums(
+        logits, batch["labels"], mesh, cfg.vocab_size)
+    denom = torch.clamp(_reduce_dp(count.detach(), mesh, dp), min=1)
+    ce = _reduce_dp(nll / denom, mesh, dp)
+    acc = _reduce_dp(correct / denom, mesh, dp).detach()
+    total = (ce + tcfg.moe_aux_coef * aux["moe_aux_loss"]
+             + tcfg.router_z_coef * aux["router_z_loss"])
+    return total, {"loss": ce.detach(), "accuracy": acc,
+                   **{k: v.detach() for k, v in aux.items()}}
+
+
+def sharded_model(cfg: ModelConfig, specs: Mapping[str, tuple],
+                  rules=None) -> LM:
+    """A :func:`skeleton` whose :attr:`LM.fsdp` names each leaf's
+    dimension split over the FSDP axis (bind the rank's blocks to run)."""
+    fsdp_axis = (rules or {}).get("fsdp", shard_axes.DEFAULT_RULES["fsdp"])
+    model = skeleton(cfg)
+    model.fsdp = {k: sp.index(fsdp_axis) for k, sp in specs.items()
+                  if fsdp_axis in sp}
+    return model
+
+
+def compute_sharded_grads(model: LM, cfg: ModelConfig, tcfg: TrainConfig,
+                          batch, params: Mapping[str, nn.Parameter], mesh,
+                          specs: Mapping[str, tuple]):
+    """The sharded step's gradients of this rank's blocks → (float32
+    gradients, each summed over the DP axes its leaf is not split over
+    and divided by the micro-batch count; the global batch's metrics).
+    ``model`` is a :func:`sharded_model` bound to ``params``; call under
+    the mesh's binding."""
+    dp = shard_axes.batch_axes()
+    bind(model, params)
+    m = tcfg.micro_batches
+    names = list(params)
+    grads, metrics = None, None
+    for i in range(m):
+        micro = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+                 for k, v in batch.items()}
+        total, met = sharded_loss_fn(model, cfg, tcfg, micro, mesh)
+        gs = torch.autograd.grad(total, [params[k] for k in names],
+                                 allow_unused=True)
+        gs = {k: torch.zeros_like(params[k]) if g is None else g
+              for k, g in zip(names, gs)}
+        if grads is None:
+            grads, metrics = gs, met
+        else:
+            grads = {k: grads[k] + gs[k] for k in names}
+            metrics = {k: metrics[k] + met[k] for k in metrics}
+        del gs, total
+    with torch.no_grad():
+        for k in names:
+            split = partition.sharded_axes(specs[k])
+            for a in dp:
+                if a not in split:
+                    grads[k] = array_ops.axis_all_reduce(grads[k], mesh, a)
+    if m > 1:
+        grads = {k: g / m for k, g in grads.items()}
+        metrics = {k: v / m for k, v in metrics.items()}
+    return grads, metrics
+
+
+def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                            state_template: TrainState, rules=None):
+    """→ ``(step, state_specs, batch_spec)``, as the reference returns.
+
+    ``state_template``'s leaves give the global shapes (a
+    :func:`meta_state` will do); ``step(state, batch) → (state,
+    metrics)`` takes this rank's blocks (:func:`init_sharded_state`,
+    :func:`shard_state`) and its rows (:func:`local_batch`).  Metrics are
+    the global batch's, the same on every rank.  ``micro_batches`` m > 1
+    sums the m micro-steps' float32 gradients in order and divides by m,
+    as the one-card step does."""
+    specs = partition.param_specs(state_template.params, cfg, mesh, rules)
+    bspec = partition.batch_spec(mesh, rules)
+    opt_specs = OptState(mu=specs, nu=specs, count=())
+    split = {k: partition.sharded_axes(v) for k, v in specs.items()}
+    model = sharded_model(cfg, specs, rules)
+
+    def step(state: TrainState, batch):
+        with shard_axes.logical_binding(mesh, rules):
+            grads, metrics = compute_sharded_grads(
+                model, cfg, tcfg, batch, state.params, mesh, specs)
+            params, opt, opt_metrics = adamw_update(
+                tcfg.optimizer, state.params, grads, state.opt, split, mesh)
+        metrics.update(opt_metrics)
+        return TrainState(params, opt), metrics
+
+    return step, TrainState(specs, opt_specs), bspec

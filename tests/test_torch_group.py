@@ -4,11 +4,13 @@ Every chain of ``tests/torch_group_cases.py`` — hash shuffle, hash and
 sort join, the groupby paths (hash, sort, combiner), ``from_numpy_blocks``
 and the packed exchange beside its reference, the set operators,
 the ordered chain (sort, rolling and cumulative windows, rank, topk,
-quantiles), cartesian, the eight Table I operators, ``spmd_ppermute`` and
-MDS at 24 points — runs on ``gloo`` groups of CPU ranks at ``(world,
-n_shards)`` = (4, 4), (2, 4) and (1, 4), one ``run_ranks`` call each, and
-is held bit for bit against the port's virtual 4-shard run: blocks
-(padding included), counts, partitioning and overflow.  The join →
+quantiles), cartesian, the eight Table I operators, ``spmd_ppermute``,
+MDS at 24 points, the TSet methods the data pipeline uses and the
+training data pipeline — runs on ``gloo`` groups of CPU ranks at
+``(world, n_shards)`` = (4, 4), (2, 4) and (1, 4), one ``run_ranks`` call
+each, and is held bit for bit against the port's virtual 4-shard run:
+blocks (padding included), counts, partitioning and overflow.  The
+training launcher runs there too, as a ``world x 1`` mesh.  The join →
 groupby chain and the ordered chain are also held against the JAX
 package's 4-device run (one subprocess for the file), as the virtual
 port is in ``test_torch_frame.py`` and ``test_torch_window.py``.
@@ -34,7 +36,7 @@ TIMEOUT_S = 120
 #: sorts every process runs on replicated data (each range exchange's
 #: splitter sort; the approximate quantile's sample sort): counted once
 #: a process, so once a rank on a group and once in the virtual run
-REPLICATED_SORTS = {"ordered": 4, "mds": 1}
+REPLICATED_SORTS = {"ordered": 4, "mds": 1, "training_data": 2}
 
 
 def leaves(tree, prefix=""):
@@ -169,6 +171,45 @@ def test_features_outside_the_slice_refuse_a_group(group, name):
         kind, msg = r["refusals"][name]
         assert kind == "NotImplementedError", (name, kind, msg)
         assert "ROADMAP Queue 1 item 11" in msg, msg
+
+
+def test_every_rank_gets_the_training_stream(group, virtual):
+    """Every rank's curated stream and global batches are the virtual
+    run's, bit for bit (the chain test holds rank 0's)."""
+    want = virtual[0]["training_data"]
+    for r in group:
+        got = r["training_data"]
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert_same(got[k], v, f"rank {r['rank']} {k}")
+
+
+def test_train_launcher_runs_on_a_group(group):
+    """``launch.train.main`` on a ``world x 1`` mesh of the group: every
+    rank's losses the same, and within bf16 rounding of the one-card
+    step's on the virtual ``world``-shard stream from the same seed."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    world = group[0]["world"]
+    cfg = configs.reduced_config(configs.get_config("smollm-360m"))
+    steps = len(group[0]["launcher"])
+    tcfg = TS.TrainConfig(optimizer=OptimizerConfig(
+        warmup_steps=max(steps // 20, 1), total_steps=steps))
+    data = pipeline.make_training_data(
+        cfg, HPTMTContext(n_shards=world, device="cpu"), batch=4, seq_len=32,
+        ccfg=pipeline.CorpusConfig(vocab_size=cfg.vocab_size))
+    state = TS.init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = TS.make_train_step(cfg, tcfg)
+    want = []
+    for _ in range(steps):
+        state, m = step(state, next(data))
+        want.append(float(m["loss"]))
+    for r in group:
+        assert r["launcher"] == group[0]["launcher"], r["rank"]
+    np.testing.assert_allclose(group[0]["launcher"], want, rtol=2e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -222,11 +222,17 @@ def test_constrain_and_embed_lookup_unbound_and_bound():
                                 torch.from_numpy(toks).long())
     np.testing.assert_array_equal(got.numpy(), ref)
     with sharding.logical_binding({"data": 16, "model": 16}):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        # bound, constrain checks the block against the spec's: batch
+        # over data's 16 ranks, embed replicated
+        assert sharding.constrain(x, "batch", "embed", shape=(48, 4)) is x
+        with pytest.raises(ValueError, match="places"):
+            sharding.constrain(x, "batch", "embed", shape=(32, 4))
+        with pytest.raises(ValueError, match="global shape"):
             sharding.constrain(x, "batch", "embed")
-        with pytest.raises(NotImplementedError, match="item 11"):
+        # a mesh of sizes alone has no ranks to gather the table over
+        with pytest.raises(TypeError, match="no process groups"):
             sharding.embed_lookup(torch.from_numpy(embed),
-                                  torch.from_numpy(toks).long())
+                                  torch.from_numpy(toks).long(), 4)
     assert sharding.constrain(x, "batch") is x
 
 

@@ -216,10 +216,50 @@ def mds_chain(ctx) -> dict:
             "x": x.numpy()}
 
 
+def tset_chain(ctx) -> dict:
+    """The TSet methods the data pipeline runs on a group: ``from_table``
+    in chunks, ``select``, ``project``, ``join`` and ``collect``."""
+    from repro_torch.core.dataflow import TSet
+
+    left, right = left_right(ctx)
+    lt = TSet.from_table(left.table, ctx, chunk_rows=LEFT_CAP // 4)
+    rt = TSet.from_table(right.table, ctx)
+    good = rt.select(lambda c: c["w"] > 0).project(["k", "w"])
+    joined = lt.project(["k", "v"]).join(good, keys=["k"],
+                                         out_capacity=LEFT_CAP)
+    return {"join": table_result(joined.collect()),
+            "select": table_result(good.collect())}
+
+
+#: the training data pipeline's corpus on a group (the port's reduced
+#: smollm vocabulary)
+CORPUS_VOCAB = 128
+
+
+def training_data_chain(ctx) -> dict:
+    """``make_training_data`` on the context: the curated stream and two
+    global batches, every rank the same."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+
+    ccfg = pipeline.CorpusConfig(vocab_size=CORPUS_VOCAB)
+    cfg = configs.reduced_config(configs.get_config("smollm-360m"))
+    stream = pipeline.preprocess(pipeline.synthetic_corpus(ccfg, ctx), ccfg,
+                                 ctx)
+    it = pipeline.make_training_data(cfg, ctx, batch=4, seq_len=16,
+                                     ccfg=ccfg)
+    out = {"stream": stream}
+    for i in range(2):
+        for k, v in next(it).items():
+            out[f"batch{i}_{k}"] = v.cpu().numpy()
+    return out
+
+
 CHAINS = {"main": main_chain, "paths": paths_chain,
           "exchange": exchange_chain, "setops": setops_chain,
           "ordered": ordered_chain, "cartesian": cartesian_chain,
-          "table1": table1_chain, "mds": mds_chain}
+          "table1": table1_chain, "mds": mds_chain, "tset": tset_chain,
+          "training_data": training_data_chain}
 
 
 def run_cases(ctx) -> tuple:
@@ -240,8 +280,7 @@ def run_cases(ctx) -> tuple:
 def _refusals(ctx, tmp: str) -> dict:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.dataflow import TSet
-    from repro_torch.data.pipeline import make_training_data
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import serve
     from repro_torch.resilience.stages import StageCheckpointer, stage_hook
     from repro_torch.workflow import WorkflowEngine
 
@@ -255,22 +294,36 @@ def _refusals(ctx, tmp: str) -> dict:
         "lazy_planner": lambda: df.lazy(),
         "dataset_write": lambda: df.to_hpt(tmp),
         "dataset_read": lambda: DataFrame.read_dataset(tmp, ctx),
-        "tset": lambda: TSet.from_table(df.table, ctx),
+        "tset_groupby": lambda: TSet.from_table(df.table, ctx).groupby(
+            ["g"], [("v", "sum")]),
         "stage_checkpoints": lambda: stage_hook(
             StageCheckpointer(tmp, "f"), ctx=ctx),
         "checkpoint_manager": lambda: CheckpointManager(tmp),
         "workflow": lambda: WorkflowEngine(),
-        "training_data": lambda: make_training_data(None, ctx, 2, 8),
         "serve_launcher": lambda: serve.main(["--arch", "smollm-360m"]),
-        "train_launcher": lambda: train.main(["--arch", "smollm-360m"]),
         "from_shard_tables": lambda: DistTable.from_shard_tables([], ctx),
     }
 
 
 REFUSED = ("spill_join", "spill_groupby", "spill_window", "lazy_planner",
-           "dataset_write", "dataset_read", "tset", "stage_checkpoints",
-           "checkpoint_manager", "workflow", "training_data",
-           "serve_launcher", "train_launcher", "from_shard_tables")
+           "dataset_write", "dataset_read", "tset_groupby",
+           "stage_checkpoints", "checkpoint_manager", "workflow",
+           "serve_launcher", "from_shard_tables")
+
+
+#: the training launcher's run on a group: reduced smollm, 2 steps, a
+#: ``world x 1`` mesh (``n_shards`` = the world size on the data axis)
+LAUNCH = ["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+          "--steps", "2", "--batch", "4", "--seq", "32"]
+
+
+def launcher_run(ctx) -> list:
+    """``launch.train.main`` on the group as a ``world x 1`` mesh → its
+    losses."""
+    from repro_torch.launch import train
+
+    assert train.main(LAUNCH + ["--mesh", f"{ctx.world}x1"]) == 0
+    return train.main.last_history
 
 
 def refusals(ctx) -> dict:
@@ -302,6 +355,8 @@ def rank_cases(ctx) -> dict:
             "local_shards": list(ctx.local_shards), "bad_split": bad_split,
             "block_shape": tuple(left.columns["k"].shape),
             "counts": counts, "refusals": refusals(ctx),
+            "launcher": launcher_run(ctx),
+            "training_data": results["training_data"],
             "results": results if ctx.rank == 0 else None}
 
 
