@@ -38,8 +38,9 @@ Phases (every failed check raises; nothing is caught):
    query at ``q_offset`` over a right-padded cache (``kv_len``) in float32
    and bfloat16, a ragged length of 1000, qwen2-moe's (8, 16, 1024, 128),
    internvl2's patch-prefixed (8, 64/8, 1280, 128), a non-causal
-   whisper-encoder case (8, 16, 1500, 64) and deepseek-67b's GQA (8,
-   64/8, 1024, 128) — against its plain version
+   whisper-encoder case (8, 16, 1500, 64), deepseek-67b's GQA (8,
+   64/8, 1024, 128) and one rank's heads of it on a 1x4 mesh (8, 16/2,
+   1024, 128; phase 31) — against its plain version
    to 2e-4 (float32, the SIMT kernel) and 2e-2 (bfloat16, the tensor-core
    kernel), each case naming the instance that ran (``impl``), timed
    beside ``scaled_dot_product_attention``;
@@ -210,8 +211,8 @@ Phases (every failed check raises; nothing is caught):
    a prefill of 1024 to 3e-2, minicpm3's absorbed decode with the naive
    one to 2e-2 in float32;
    the MoE dropped fraction is printed for a prefill and a decode step.
-   Prefill ms, decode ms a token, tokens/s and peak GiB: medians of 3
-   runs for the whole models, one run for the configs cut in depth;
+   Prefill ms, decode ms a token, tokens/s and peak GiB: one timed run
+   (the time limit);
 25. training, smollm-360m at its full published width and depth (32
    layers, d_model 960, GQA 15/5, vocab 49152, tied embeddings): float32
    masters drawn on the card from ``--seed``, bf16 compute, each layer
@@ -277,10 +278,11 @@ Phases (every failed check raises; nothing is caught):
    3-7's data from ``--seed``, keeps its own rows and runs phase 4's main
    path, phase 5's set ops, phase 7's ordered chain, phase 27a's Table I
    operators on their 256 MB inputs and MDS at 2^13 points, once checked,
-   then 3 times timed (MDS: the pipeline, its first run checked against
-   its pieces).  Every result is held against the virtual run of its
-   phase shard by shard: each shard's column blocks bit for bit (128-bit
-   blake2b prints of their bits, so no shard moves for the check), its
+   then ``GROUP_RUNS`` times timed (MDS: the pipeline, its first run
+   checked against its pieces).  Every result is held against the
+   virtual run of its phase shard by shard: each shard's column blocks
+   bit for bit (128-bit blake2b prints of their bits, so no shard moves
+   for the check), its
    counts, partitioning and overflow — but for the main path's float sums
    of the segment kernels' atomics (their order of addition varies run to
    run), which are held against phase 3's float64 oracle as phase 4 holds
@@ -316,19 +318,45 @@ Phases (every failed check raises; nothing is caught):
    one-card step with micro-batches = the data axis (the EP metrics'
    semantics), within ``MOE_MESH_LIMITS``.  Every rank's loss and grad
    norm the same.  One ``mesh_train`` line a config: backend, world,
-   cards, step ms (median of 3), tokens/s, peak GiB a rank, the checked
-   step's model collectives by kind and axis and their ms a rank, the
-   phase's seconds; the ranks' launches join the ``kernels``
-   line;
-31. summary — the script's seconds so far, the ``kernels`` JSON line, the
+   cards, step ms (one timed step: the time limit), tokens/s, peak GiB a
+   rank, the checked step's model collectives by kind and axis and
+   their ms a rank, the phase's seconds; the ranks' launches join the
+   ``kernels`` line;
+31. serving across ranks: the reference's prefill and decode cells
+   (``launch/cells.py:serve_cell``: each rank's parameter blocks by
+   ``param_specs`` drawn from ``--seed``, its cache blocks by
+   ``cache_specs``; the engine on the mesh) on 4 spawned ranks — NCCL
+   with a card a rank where 4 cards exist, else gloo on card 0.  (a)
+   deepseek-67b at full width, 10 of 95 layers as phase 28, on a 1x4
+   mesh (16/2 heads, d_ff 5504, vocab 25,600 a rank), bf16, phase 28's
+   serve shape: 10 tensor-core flash launches a rank on its local heads,
+   each held against ``attend`` on its own q, k, v (``FlashTap``, 2e-2),
+   the gathered last logits within 2e-2 of the largest of phase 28's;
+   (b) smollm-360m whole on 2x2 (replicated attention, the
+   sequence-sharded cache and its softmax merge, FSDP gathers over
+   ``data``, the tied vocab-split head): bf16 logits within 2e-2 of phase
+   9's, 16 tokens; then float32 at ``SERVE_F32`` on the SIMT kernel:
+   greedy tokens equal to the one-card float32 run's, every gathered
+   cache leaf after the prefill and the last step against its
+   (``pos`` and ``cursor`` exactly, K/V to ``MESH_CACHE_F32``); (c)
+   qwen2-moe-a2.7b at published widths, 2 of 24 layers, EP over model on
+   2x2, float32 at ``SERVE_F32``: greedy tokens and caches against one
+   card, the MoE dropped fractions printed.  One ``mesh_serve`` line a
+   config: backend, world, cards, mesh, prefill ms, decode ms a token,
+   tokens/s, peak GiB a rank, one decode step's model collectives by
+   kind and axis with their ms (each synchronized) beside the step's ms
+   untimed, the phase's seconds; the ranks' flash launches join the
+   ``kernels`` line;
+32. summary — the script's seconds so far, the ``kernels`` JSON line, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 
-Wall times of phases 3-12 are medians of 3 runs after one checked warm-up
-run; kernel launch counts are those of the checked runs.  ``--profile``
-adds one ``torch.profiler`` run of each of phases 3-10, of phase 12's
-re-entry path, of phase 14's 4-shard planned chain, of phase 15's 4-shard
-``groupby_k`` and ``join_groupby`` pipelines, of phase 16's traced
+Wall times of phases 3-7 and 10-12 are medians of 3 runs after one
+checked warm-up run; kernel launch counts are those of the checked runs.
+``--profile`` adds one ``torch.profiler`` run of each of phases 3-10,
+of phase 12's re-entry path, of phase 14's 4-shard planned chain, of
+phase 15's 4-shard ``groupby_k`` and ``join_groupby`` pipelines, of
+phase 16's traced
 4-shard main path, of one generate of qwen2-moe and of jamba and of one
 phase-25 train step (device busy share, top kernels; a table of each in
 the output directory that ``profile_run`` writes to).
@@ -380,7 +408,7 @@ SERVE_F32 = {"batch": 2, "prompt": 256, "gen": 16}
 #: qwen2-moe and minicpm3 cut in depth too (PR 24): the script stays
 #: inside its time limit with phase 30 added
 FAMILIES = [("qwen2-moe-a2.7b", 12, 1), ("minicpm3-4b", 16, 1),
-            ("xlstm-125m", None, 3), ("whisper-medium", None, 3),
+            ("xlstm-125m", None, 1), ("whisper-medium", None, 1),
             ("mixtral-8x7b", 8, 1), ("jamba-v0.1-52b", 8, 1),
             ("internvl2-76b", 8, 1)]
 # phase 28: deepseek-67b, 10 of its 95 layers (two of its nineteen 5-layer
@@ -957,6 +985,8 @@ FLASH_CASES = [
      None, 0),
     ("deepseek-67b prefill", 8, 64, 8, 1024, 1024, 128, "bfloat16", True,
      None, None, 0),
+    ("deepseek-67b rank prefill", 8, 16, 2, 1024, 1024, 128, "bfloat16",
+     True, None, None, 0),
 ]
 
 
@@ -1120,12 +1150,14 @@ class FlashTap:
         from repro_torch.kernels.flash_attention import ops
         self.ops, self.real = ops, ops.flash_attention
         self.layers, self.max_abs_err, self.bad = 0, 0.0, []
+        self.shape = None       # the first launch's (q, k) shapes
 
     def __enter__(self):
         from repro_torch.models.layers import attend
 
         def tapped(q, k, v, *, causal=True, window=None):
             o = self.real(q, k, v, causal=causal, window=window)
+            self.shape = self.shape or (tuple(q.shape), tuple(k.shape))
             pos = torch.arange(q.shape[2], device=q.device)
             exp = attend(q, k, v, q_pos=pos, kv_pos=pos, causal=causal,
                          window=window).float()
@@ -1152,7 +1184,9 @@ def serve_phase(arch: str, dev, seed: int, launches, profile: bool,
     """Serve ``arch`` at its full published width (``depth`` layers when
     given, else all) on the card: tokens, flash launches, the plain path,
     float32 greedy tokens, and for the families that have them the MoE
-    drops, decode against prefill and MLA's absorbed decode."""
+    drops, decode against prefill and MLA's absorbed decode.  Returns the
+    prefill's last logits and the greedy tokens, on the host (phase 31's
+    one-card yardsticks)."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -1201,6 +1235,7 @@ def serve_phase(arch: str, dev, seed: int, launches, profile: bool,
     with FlashTap() as tap:
         flash_logits = prefill()
     check(bool(flash_logits.isfinite().all()), f"{arch}: finite logits")
+    kept = {"logits": flash_logits.float().cpu(), "tokens": out}
     if n_flash:
         # each layer's flash output against the plain attend on its own
         # inputs, then the logits against the plain path's (2e-2 of the
@@ -1367,6 +1402,7 @@ def serve_phase(arch: str, dev, seed: int, launches, profile: bool,
          / (n - 1) * 1e3, generate_s=gen_s, tokens_per_s=b * n / gen_s,
          prefill_runs_s=pre, generate_runs_s=gen_runs, peak_gib=peak,
          **fields)
+    return kept
 
 
 def make_events(seed: int):
@@ -3259,6 +3295,8 @@ def mds_phase(dev, seed: int, launches) -> dict:
 # phase 29: the table path on a process group
 # ---------------------------------------------------------------------------
 GROUP_WORLD = 4
+#: timed runs of each chain a leg (one: the time limit)
+GROUP_RUNS = 1
 GROUP_TIMEOUT_S = 900
 #: MDS on the group legs: 2^13 points keep 4 ranks' δ (256 MB each) and
 #: SMACOF buffers small on one card
@@ -3442,11 +3480,12 @@ def group_rank(ctx, seed: int, want_ex: dict) -> dict:
                            "k": whole_rows(res["k"])}
     del res
     runs["main"] = timed_runs(lambda: main_path(DataFrame, ctx, left, right,
-                                                2.0))
+                                                2.0), GROUP_RUNS)
     res = checked("setops", lambda: set_ops(DataFrame, ctx, sets))
     prints["setops"] = shard_prints(res, first)
     del res
-    runs["setops"] = timed_runs(lambda: set_ops(DataFrame, ctx, sets))
+    runs["setops"] = timed_runs(lambda: set_ops(DataFrame, ctx, sets),
+                                GROUP_RUNS)
     res = checked("ordered", lambda: ordered_path(DataFrame, ctx, events,
                                                   2.0, launches.sorts))
     check(res["win_sorts"] == 0 and res["q_sorts"] == 0,
@@ -3454,7 +3493,7 @@ def group_rank(ctx, seed: int, want_ex: dict) -> dict:
     prints["ordered"] = shard_prints(res, first)
     del res
     runs["ordered"] = timed_runs(lambda: ordered_path(
-        DataFrame, ctx, events, 2.0, launches.sorts))
+        DataFrame, ctx, events, 2.0, launches.sorts), GROUP_RUNS)
     prints["collectives"] = collective_prints(ctx, dev, seed)
 
     n, dim, iters = MDS_GROUP["n"], MDS_GROUP["dim"], MDS_GROUP["iters"]
@@ -3464,7 +3503,7 @@ def group_rank(ctx, seed: int, want_ex: dict) -> dict:
     check(np.array_equal(pipe, prints["mds"]["path"]),
           f"rank {ctx.rank}: the mds pipeline's path is its pieces'")
     runs["mds"] = timed_runs(lambda: mds.mds_pipeline(n, dim, iters, ctx,
-                                                      seed))
+                                                      seed), GROUP_RUNS)
 
     # one packed shuffle frame of the main path's join (the left side:
     # k, g, v and the carried h1, h2 lanes; 2x head-room buckets)
@@ -3617,7 +3656,7 @@ MESH_TIMEOUT_S = 900
 #: float32 CPU parity holds to 1e-6)
 MESH_TRAIN = {
     "smollm": {"arch": "smollm-360m", "layers": None, "batch": 8,
-               "seq": 1024, "timed": 3, "dtype": None,
+               "seq": 1024, "timed": 1, "dtype": None,
                "corpus": {"n_docs": 1 << 15, "mean_doc_len": 512}},
     "qwen2_moe": {"arch": "qwen2-moe-a2.7b", "layers": 2, "batch": 2,
                   "seq": 1024, "timed": 0, "dtype": "float32",
@@ -3936,6 +3975,392 @@ def mesh_train_phase(seed: int, launches) -> None:
                   f"card {key} {agree[key]} within {limit}")
 
 
+# ---------------------------------------------------------------------------
+# phase 31: serving across ranks — the reference's prefill and decode cells
+# ---------------------------------------------------------------------------
+SERVE_WORLD = 4
+SERVE_TIMEOUT_S = 900
+#: (a) deepseek-67b at full width, 10 of 95 layers as phase 28, heads
+#: split over a 1x4 mesh (16/2 heads, d_ff 5504 and vocab 25,600 a rank),
+#: bf16 at phase 28's serve shape, held against phase 28's logits, its
+#: generation cut to 32 tokens; (b) smollm-360m whole on 2x2 (15/5 heads
+#: do not split: replicated attention, the sequence-sharded cache), bf16
+#: logits against phase 9's, its generation cut to 4 tokens (~420 gloo
+#: calls, 1.6 s, a token on one card), then float32 at ``SERVE_F32``'s
+#: prompts; (c) qwen2-moe-a2.7b at published widths, 2 of 24 layers as
+#: phase 30, EP over model on 2x2, float32 only.  In float32 the greedy
+#: tokens (``MESH_F32_GEN`` of them: the time limit) and every cache leaf
+#: are held against the one-card run of the same seed.
+MESH_SERVE = {
+    "deepseek": {"arch": "deepseek-67b", "layers": 10, "dims": (1, 4),
+                 "gen": 32, "f32": False},
+    "smollm": {"arch": "smollm-360m", "layers": None, "dims": (2, 2),
+               "gen": 4, "f32": True},
+    "qwen2_moe": {"arch": "qwen2-moe-a2.7b", "layers": 2, "dims": (2, 2),
+                  "gen": None, "f32": True},
+}
+MESH_F32_GEN = 4
+#: a float32 cache leaf, and (b)'s float32 last logits at phase 9's
+#: serve shape, on the mesh against one card's, of the largest magnitude
+#: (the TP all-reduces add partials in another order)
+MESH_CACHE_F32 = 1e-5
+#: bf16 last logits on the mesh against one card's, of the largest: (a)
+#: has no float32 yardstick (its float32 weights alone are 34 GB), so it
+#: is held to phase 2's bf16 tolerance; (b)'s bf16 logits are held within
+#: this multiple of the larger of the two runs' own bf16-vs-float32 gaps
+#: on the same prompts (phase 30's rule for its bf16 loss): on an H100
+#: (700 W) they read 0.0214 against phase 9's where one card's own
+#: bf16-vs-float32 gap was 0.0267 — the MLP's TP all-reduce adds rounded
+#: bf16 partials, as the reference's psum does
+MESH_LOGITS_BF16 = 2e-2
+MESH_BF16_GAPS = 3.0
+
+
+def mesh_serve_cfg(conf):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(conf["arch"])
+    if conf["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=conf["layers"])
+    return cfg
+
+
+def serve_prompts(cfg, seed: int):
+    """Phases 8-9's prompts (``serve_phase`` draws them so)."""
+    rng = np.random.default_rng(seed + 2)
+    return rng.integers(1, cfg.vocab_size, (SERVE["batch"], SERVE["prompt"]),
+                        dtype=np.int32)
+
+
+def host_cache(cache) -> list:
+    """Host copies of a cache's leaves (the cache is updated in place)."""
+    return [{k: v.to("cpu", copy=True).numpy() if torch.is_tensor(v) else v
+             for k, v in layer.items()} for layer in cache]
+
+
+def greedy_run(model, toks, cache_len: int, steps: int, keep) -> dict:
+    """A prefill of ``toks`` and ``steps`` greedy decode steps of
+    ``model`` (under the caller's binding): the prefill's last logits,
+    the tokens, ``keep`` of the cache after the prefill and after the
+    last step, the MoE metrics of the prefill and the first step."""
+    from repro_torch.serve.engine import sample
+
+    s, v = toks.shape[1], model.cfg.vocab_size
+    with torch.inference_mode():
+        logits, cache, aux_p = model(toks, mode="prefill",
+                                     cache_len=cache_len,
+                                     last_logit_only=True)
+        first = keep(cache)
+        out, aux_d = [sample(logits[:, -1], vocab_size=v)], None
+        for t in range(steps):
+            lg, cache, aux = model(out[-1], mode="decode", cache=cache,
+                                   positions=torch.tensor(
+                                       [s + t], dtype=torch.int32,
+                                       device=toks.device))
+            aux_d = aux if aux_d is None else aux_d
+            out.append(sample(lg[:, -1], vocab_size=v))
+    return {"logits": logits[:, -1], "tokens": torch.cat(out, 1),
+            "caches": (first, keep(cache)), "aux": (aux_p, aux_d)}
+
+
+def serve_logits(model, prompts) -> torch.Tensor:
+    """A prefill's last logits at phase 8-9's serve shape (under the
+    caller's binding: this rank's rows and vocab block)."""
+    with torch.inference_mode():
+        logits, _, _ = model(prompts, mode="prefill",
+                             cache_len=prompts.shape[1],
+                             last_logit_only=True)
+    return logits[:, -1]
+
+
+def one_card_f32(conf, seed: int, dev) -> dict:
+    """Phase 31's float32 yardstick: the one-card model of the same seed
+    at ``SERVE_F32`` (tokens and caches on the host), and where the config
+    also serves in bf16 its last logits at the serve shape."""
+    from repro_torch.models.transformer import LM
+
+    f = SERVE_F32
+    cfg = dataclasses.replace(mesh_serve_cfg(conf), dtype="float32")
+    model = LM(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    prompts = serve_prompts(cfg, seed)
+    run = greedy_run(model, torch.as_tensor(
+        prompts[:f["batch"], :f["prompt"]], device=dev),
+        f["prompt"] + MESH_F32_GEN + 8, MESH_F32_GEN - 1, host_cache)
+    out = {"tokens": run["tokens"].cpu().numpy(), "caches": run["caches"]}
+    if conf["gen"]:
+        out["logits"] = serve_logits(model, torch.as_tensor(
+            prompts, device=dev)).cpu()
+    del model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def whole_logits(cell, logits) -> np.ndarray:
+    """Every rank's rows and vocab blocks of ``logits``, on the host."""
+    from repro_torch.core import array_ops
+    from repro_torch.sharding import partition
+
+    with cell.binding():
+        if logits.shape[-1] != cell.cfg.vocab_size:
+            logits = array_ops.axis_all_gather(logits, cell.mesh, "model",
+                                               -1)
+        return partition.gather_rows(logits, cell.mesh).float().cpu().numpy()
+
+
+def mesh_serve_bf16(cfg, conf, mesh, dev, seed: int, launches) -> dict:
+    """(a), (b): bf16 at phase 28's serve shape on this rank's blocks —
+    the checked prefill (every flash launch held against ``attend``), one
+    decode step with its collectives timed (each synchronized) and one
+    without, then a timed prefill and a generate of ``conf["gen"]``."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core import array_ops
+    from repro_torch.launch.cells import serve_cell
+    from repro_torch.serve.engine import Engine, ServeConfig, sample
+
+    b, s, n = SERVE["batch"], SERVE["prompt"], conf["gen"]
+    prompts = serve_prompts(cfg, seed)
+    cell = serve_cell(cfg, ShapeCell("serve", s + n + 8, b, "prefill"), mesh,
+                      seed, dev)
+    with cell.binding():
+        engine = Engine(cell.model, ServeConfig(max_len=s + n + 8))
+    n_flash = flash_layers(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    with FlashTap() as tap:
+        logits, cache = engine.prefill(prompts)
+        torch.cuda.synchronize()
+    counts, _ = launches.read()
+    instances = {k: c.n for k, c in launches.flash_instances.items()}
+    check(counts["flash_attention"] == n_flash
+          and instances == {"wgmma": n_flash, "simt": 0},
+          f"{cfg.name}: {counts['flash_attention']} flash launches a rank "
+          f"({instances}), expected {n_flash} on the tensor-core kernel")
+    check(tap.layers == n_flash and not tap.bad,
+          f"{cfg.name}: flash against plain attend in {tap.layers} layers, "
+          f"outside 2e-2: {tap.bad}")
+    out = {"logits": whole_logits(cell, logits), "launches": counts,
+           "flash_instances": instances,
+           "flash_shape": tap.shape,
+           "flash_vs_attend_max_abs_err": tap.max_abs_err}
+    with cell.binding(), torch.inference_mode():
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+    pos = torch.tensor([s], dtype=torch.int32, device=dev)
+    coll = array_ops.MODEL_COLLECTIVES
+    coll.reset()
+    coll.timed = True
+    try:
+        t0 = time.perf_counter()
+        cell.decode(cache, tok, pos)
+        torch.cuda.synchronize()
+        out["decode_step_timed_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        coll.timed = False
+    out["step_collectives"] = dict(coll.counts)
+    out["collective_ms"] = {k: v * 1e3 for k, v in coll.seconds.items()}
+    t0 = time.perf_counter()
+    cell.decode(cache, tok, pos)        # the same slot again, untimed
+    torch.cuda.synchronize()
+    out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    del cache, logits, tok
+
+    def prefill():
+        engine.prefill(prompts)
+        torch.cuda.synchronize()
+
+    launches.reset()
+    pre = timed_runs(prefill, 1)[0]
+    t0 = time.perf_counter()
+    out["tokens"] = engine.generate(prompts, n)
+    gen = time.perf_counter() - t0
+    launches.read()
+    out.update(prefill_ms=pre * 1e3, generate_s=gen,
+               decode_ms_per_token=(gen - pre) / (n - 1) * 1e3,
+               tokens_per_s=b * n / gen,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del engine, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_f32(cfg, conf, mesh, dev, seed: int, launches) -> dict:
+    """(b), (c): float32 at ``SERVE_F32`` on this rank's blocks: greedy
+    tokens, the gathered caches after the prefill and the last step, the
+    MoE dropped fractions; where the config also serves in bf16, the
+    last logits at the serve shape."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.cells import serve_cell
+    from repro_torch.sharding import partition
+
+    f = SERVE_F32
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    small = serve_prompts(cfg, seed)[:f["batch"], :f["prompt"]]
+    cache_len = f["prompt"] + MESH_F32_GEN + 8
+    cell = serve_cell(cfg, ShapeCell("serve_f32", cache_len, f["batch"],
+                                     "prefill"), mesh, seed, dev)
+    launches.reset()
+    with cell.binding():
+        run = greedy_run(cell.model, cell.rows(torch.as_tensor(
+            small, device=dev)), cache_len, MESH_F32_GEN - 1,
+            lambda c: host_cache(cell.gather_cache(c)))
+        tokens = partition.gather_rows(run["tokens"], mesh).cpu().numpy()
+    counts, _ = launches.read()
+    simt = launches.flash_instances["simt"].n
+    check(simt == flash_layers(cfg) == counts["flash_attention"],
+          f"{cfg.name}: the float32 prefill ran {simt} SIMT flash launches "
+          f"a rank, expected {flash_layers(cfg)}")
+    out = {"tokens": tokens, "caches": run["caches"], "flash_launches": simt}
+    if conf["gen"]:
+        launches.reset()
+        with cell.binding():
+            out["logits"] = whole_logits(cell, serve_logits(
+                cell.model, cell.rows(torch.as_tensor(
+                    serve_prompts(cfg, seed), device=dev))))
+        launches.read()
+    if cfg.is_moe:
+        n_moe = sum(type(ly.ffn).__name__ == "MoE" for ly in cell.model.layers)
+        out["moe_dropped_frac"] = {
+            k: float(aux["moe_dropped_frac"]) / n_moe
+            for k, aux in zip(("prefill", "decode"), run["aux"])}
+    del cell, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_rank(ctx, seed: int) -> dict:
+    """One rank of phase 31: each config of :data:`MESH_SERVE` on its
+    mesh of the world's ranks (``launch/mesh.py:mesh_context``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import mesh_context
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, rank = ctx.device, dist.get_rank()
+    launches = Launches()
+    meshes, out = {}, {"rank": rank}
+    for name, conf in MESH_SERVE.items():
+        t0 = time.perf_counter()
+        dims = conf["dims"]
+        if dims not in meshes:
+            meshes[dims] = mesh_context(dims, ("data", "model"))
+        cfg = mesh_serve_cfg(conf)
+        res = {}
+        if conf["gen"]:
+            res["bf16"] = mesh_serve_bf16(cfg, conf, meshes[dims], dev, seed,
+                                          launches)
+        if conf["f32"]:
+            res["f32"] = mesh_serve_f32(cfg, conf, meshes[dims], dev, seed,
+                                        launches)
+        res["seconds"] = time.perf_counter() - t0
+        if rank:        # the gathered arrays come back from rank 0 only
+            for part in ("bf16", "f32"):
+                for key in ("logits", "caches"):
+                    res.get(part, {}).pop(key, None)
+        out[name] = res
+    out["launches"] = launches.total
+    return out
+
+
+def check_caches_f32(got, want, tag: str) -> float:
+    """The mesh's gathered float32 cache against one card's: ``pos`` and
+    ``cursor`` exactly, K/V to :data:`MESH_CACHE_F32` of the largest;
+    returns the largest such ratio."""
+    worst = 0.0
+    check(len(got) == len(want), f"{tag}: layers")
+    for j, (g, w) in enumerate(zip(got, want)):
+        check(g["cursor"] == w["cursor"]
+              and np.array_equal(g["pos"], w["pos"]),
+              f"{tag} layer {j}: cursor and pos")
+        for name in ("k", "v"):
+            check(g[name].shape == w[name].shape, f"{tag} layer {j} {name}")
+            rel = float(np.abs(g[name] - w[name]).max()
+                        / max(np.abs(w[name]).max(), 1e-30))
+            worst = max(worst, rel)
+    check(worst <= MESH_CACHE_F32, f"{tag}: cache K/V {worst} of the "
+          f"largest, limit {MESH_CACHE_F32}")
+    return worst
+
+
+def mesh_serve_phase(dev, seed: int, launches, yard: dict) -> None:
+    """Phase 31: :data:`MESH_SERVE` on 4 ranks (NCCL with a card a rank
+    where 4 cards exist, else gloo with every rank on card 0), held
+    against the one-card runs: ``yard`` holds phases 9 and 28's last
+    logits by config; the float32 runs are made here first."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t_start = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= SERVE_WORLD else "gloo"
+    ref32 = {name: one_card_f32(conf, seed, dev)
+             for name, conf in MESH_SERVE.items() if conf["f32"]}
+    torch.cuda.empty_cache()
+    ranks = run_ranks(mesh_serve_rank, SERVE_WORLD, backend, "cuda",
+                      args=(seed,), timeout_s=SERVE_TIMEOUT_S)
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches.total[k] += n
+    for name, conf in MESH_SERVE.items():
+        r0 = ranks[0][name]
+        line = {"config": name, "arch": conf["arch"],
+                "layers": mesh_serve_cfg(conf).n_layers, "backend": backend,
+                "world": SERVE_WORLD, "cards": min(SERVE_WORLD, n_cards),
+                "mesh": "x".join(map(str, conf["dims"])),
+                "rank_seconds": [r[name]["seconds"] for r in ranks]}
+        if "bf16" in r0:
+            bf = r0["bf16"]
+            rel = rel_err(torch.from_numpy(bf["logits"]),
+                          yard[name]["logits"])
+            limit = MESH_LOGITS_BF16
+            if "f32" in r0:
+                one32 = ref32[name]["logits"]
+                mesh32 = torch.from_numpy(r0["f32"]["logits"])
+                gaps = (rel_err(yard[name]["logits"], one32),
+                        rel_err(torch.from_numpy(bf["logits"]), mesh32))
+                rel32 = rel_err(mesh32, one32)
+                check(rel32 <= MESH_CACHE_F32, f"{name}: the mesh's float32 "
+                      f"last logits {rel32} of the largest from one card's")
+                limit = MESH_BF16_GAPS * max(gaps)
+                line.update(logits_f32_rel_vs_one_card=rel32,
+                            bf16_vs_f32_gaps=gaps)
+            check(rel <= limit, f"{name}: the mesh's last logits {rel} of "
+                  f"the largest from the one-card run's, limit {limit}")
+            for r in ranks:
+                check(np.array_equal(r[name]["bf16"]["tokens"], bf["tokens"]),
+                      f"{name} rank {r['rank']}: the global tokens")
+            line["bf16_tokens_equal_one_card"] = int(
+                (bf["tokens"] == yard[name]["tokens"][:, :conf["gen"]]).sum())
+            line.update(
+                batch=SERVE["batch"], prompt=SERVE["prompt"],
+                new_tokens=conf["gen"],
+                logits_rel_vs_one_card=rel, logits_limit=limit,
+                **{k: bf[k] for k in (
+                    "prefill_ms", "decode_ms_per_token", "tokens_per_s",
+                    "generate_s", "launches", "flash_instances",
+                    "flash_vs_attend_max_abs_err", "flash_shape",
+                    "decode_step_ms",
+                    "decode_step_timed_ms", "step_collectives")},
+                peak_gib=[r[name]["bf16"]["peak_gib"] for r in ranks],
+                collective_ms=[r[name]["bf16"]["collective_ms"]
+                               for r in ranks])
+        if "f32" in r0:
+            f32, want = r0["f32"], ref32[name]
+            for r in ranks:
+                check(np.array_equal(r[name]["f32"]["tokens"], want["tokens"]),
+                      f"{name} rank {r['rank']}: float32 greedy tokens equal "
+                      f"to the one-card run's")
+            line["f32_tokens_equal"] = True
+            line["f32_cache_rel"] = [
+                check_caches_f32(g, w, f"{name} float32 {when}")
+                for when, g, w in zip(("prefill", "last step"),
+                                      f32["caches"], want["caches"])]
+            line["f32_flash_launches"] = f32["flash_launches"]
+            if "moe_dropped_frac" in f32:
+                line["moe_dropped_frac"] = [r[name]["f32"]["moe_dropped_frac"]
+                                            for r in ranks]
+        emit("mesh_serve", **line)
+    emit("mesh_serve_seconds", total=time.perf_counter() - t_start)
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -4124,9 +4549,12 @@ def main() -> int:
     emit("ordered_4shards", launches=counts7, exchanges=ex7,
          median_s=statistics.median(runs7), runs_s=runs7, peak_gib=peak7)
 
-    # 8./9. serving: phi3-mini-3.8b, then smollm-360m
+    # 8./9. serving: phi3-mini-3.8b, then smollm-360m (phase 31's
+    # yardstick)
+    yard = {}
     for arch in ("phi3-mini-3.8b", "smollm-360m"):
-        serve_phase(arch, dev, args.seed, launches, args.profile)
+        yard[arch.split("-")[0]] = serve_phase(arch, dev, args.seed, launches,
+                                               args.profile, None, 1)
 
     # 10. the sort-merge join on the main path, 1 and 4 shards
     sort_join_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
@@ -4214,7 +4642,8 @@ def main() -> int:
     # 28. deepseek-67b served, cut in depth
     t0 = time.perf_counter()
     arch, depth, runs = DEEPSEEK
-    serve_phase(arch, dev, args.seed, launches, args.profile, depth, runs)
+    yard["deepseek"] = serve_phase(arch, dev, args.seed, launches,
+                                   args.profile, depth, runs)
     array_s["deepseek"] = time.perf_counter() - t0
     emit("array_seconds", total=sum(array_s.values()), **array_s)
 
@@ -4232,7 +4661,12 @@ def main() -> int:
     mesh_train_phase(args.seed, launches)
     emit("mesh_train_seconds", total=time.perf_counter() - t0)
 
-    # 31. summary
+    # 31. serving across ranks: the prefill and decode cells on 4 ranks
+    torch.cuda.empty_cache()
+    mesh_serve_phase(dev, args.seed, launches, yard)
+    del yard
+
+    # 32. summary
     kernels = []
     for r in krows:
         name = r["name"]

@@ -68,7 +68,10 @@ gradients over ONE axis of a mesh of ranks at a time
 :func:`reduce_from_axis`), each a ``torch.autograd.Function`` whose
 backward is its dual; built on the same two calls and folded in rank
 order, they are counted by kind and axis in :data:`MODEL_COLLECTIVES`,
-not in :data:`EXCHANGES`.
+not in :data:`EXCHANGES`.  Serving adds two without a gradient, one
+all-gather each: :func:`vocab_argmax` (greedy sampling over vocab-split
+logits) and :func:`merge_softmax` (attention over a sequence-sharded KV
+cache).
 
 :data:`SORTS` counts the port's stable lexicographic sorts
 (``core/exchange.py:lex_order``, the one sort choke point); it stands in
@@ -638,3 +641,60 @@ def reduce_from_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if not _moves(mesh, axis):
         return x
     return _ReduceFrom.apply(x, mesh, axis)
+
+
+# ---------------------------------------------------------------------------
+# inference collectives over one axis (serving; no gradient)
+# ---------------------------------------------------------------------------
+def _gather_axis(x: torch.Tensor, mesh, axis: str, kind: str) -> list:
+    """Every rank's ``x`` over ``axis``, in coordinate order (one
+    all-gather, counted under ``kind``)."""
+    group, _, _ = _axis(mesh, axis)
+    with MODEL_COLLECTIVES.call(kind, axis, x.device):
+        return list(_gather_stack(x.unsqueeze(0), group).unbind(0))
+
+
+def vocab_argmax(logits: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``argmax`` over the last dimension of logits split over ``axis``
+    (this rank's block of ``V / M`` columns) → the global indices, int64,
+    on every rank: ``torch.argmax`` of the whole row.
+
+    Each rank's largest value and its global index travel in one gather
+    (float64 holds both exactly); the fold in coordinate order keeps the
+    first of equal values, so a tie goes to the lowest index."""
+    idx = torch.argmax(logits, dim=-1)
+    if not _moves(mesh, axis):
+        return idx
+    best = logits.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+    idx = idx + mesh.coords[axis] * logits.shape[-1]
+    pair = torch.stack([best.to(torch.float64), idx.to(torch.float64)], -1)
+    every = _gather_axis(pair, mesh, axis, "argmax")
+    out = every[0]
+    for p in every[1:]:
+        out = torch.where(p[..., :1] > out[..., :1], p, out)
+    return out[..., 1].to(torch.int64)
+
+
+def merge_softmax(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                  mesh, axis: str) -> torch.Tensor:
+    """The softmax attention over a key axis split over ``axis`` from
+    each rank's partial statistics: ``o`` the unnormalized float32
+    ``sum_j exp(s_j - m) v_j`` over its keys, ``m`` its row max (``-1e30``
+    where none of its keys is visible) and ``l`` its ``sum_j exp(s_j -
+    m)``, both ``o``'s shape with a last dimension of 1.  Every rank's
+    triple travels in one gather; the rescaled sums are added in
+    coordinate order.  → ``O / L`` in float32 on every rank."""
+    if not _moves(mesh, axis):
+        return o / torch.clamp(l, min=1e-30)
+    every = _gather_axis(torch.cat([o, m, l], dim=-1), mesh, axis,
+                         "softmax_merge")
+    top = every[0][..., -2:-1]
+    for p in every[1:]:
+        top = torch.maximum(top, p[..., -2:-1])
+    big_o, big_l = None, None
+    for p in every:
+        scale = torch.exp(p[..., -2:-1] - top)
+        po, pl = p[..., :-2] * scale, p[..., -1:] * scale
+        big_o = po if big_o is None else big_o + po
+        big_l = pl if big_l is None else big_l + pl
+    return big_o / torch.clamp(big_l, min=1e-30)

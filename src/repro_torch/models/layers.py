@@ -22,8 +22,8 @@ updated in place: the decode step writes the new K/V (or MLA latent)
 into the tensors the prefill built instead of copying the cache, and
 returns the same tensors.
 
-On a mesh of ranks (a bound ``sharding.axes.GroupMesh``; training only)
-the GQA attention and the SwiGLU MLP are tensor parallel over ``model``
+On a mesh of ranks (a bound ``sharding.axes.GroupMesh``) the GQA
+self-attention and the SwiGLU MLP are tensor parallel over ``model``
 (Megatron's pair: :func:`array_ops.copy_to_axis` on the input, one
 :func:`array_ops.reduce_from_axis` all-reduce after ``wo`` / ``w_out``).
 The reference's rules shard a *dimension* and leave GSPMD to reshard;
@@ -32,7 +32,11 @@ decides from their blocks: attention keeps its local heads only when
 every projection splits on head boundaries (q and kv head counts divide
 the axis), else it gathers each split projection whole over ``model``
 and computes replicated — smollm's ``wq`` is ``(960, 15 * 64)``, whose
-960 columns split in two but whose 15 heads do not.
+960 columns split in two but whose 15 heads do not.  In serving the
+prefill runs the flash kernel on the rank's heads (all of them when
+replicated), and the KV cache is placed as ``cache_specs`` says: the
+local heads, else a slice of the cache length (:func:`attend_sharded`
+merges the ranks' softmax statistics in decode), else whole.
 """
 from __future__ import annotations
 
@@ -135,6 +139,47 @@ def _mask_for_chunk(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
     return allow
 
 
+def _kv_f32(q, k, v, sm_scale):
+    """K and V repeated up to q's heads, in float32, and the scale."""
+    hq, hkv = q.shape[1], k.shape[1]
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if hkv != hq:
+        rep = hq // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    return k.to(torch.float32), v.to(torch.float32), scale
+
+
+def _softmax_parts(qc, kf, vf, qp, kv_pos, causal, window, scale):
+    """One query chunk's masked softmax, unnormalized: (``sum_l p v``, the
+    row max ``m``, ``sum_l p``) in float32, ``p = exp(score - m)`` over
+    the visible keys (``m`` = -1e30 where none is)."""
+    scores = torch.einsum("bhsd,bhld->bhsl", qc.to(torch.float32), kf) * scale
+    allow = _mask_for_chunk(qp, kv_pos, causal, window)
+    scores = torch.where(allow, scores, -1e30)
+    # the row max carries no gradient (the reference's stop_gradient)
+    m = torch.amax(scores, dim=-1, keepdim=True).detach()
+    p = torch.exp(scores - m)
+    p = torch.where(allow, p, 0.0)
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    return torch.einsum("bhsl,bhld->bhsd", p, vf), m, denom
+
+
+def attend_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                   axis: str, *, q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                   causal: bool = True,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """:func:`attend` over keys split along ``axis``: ``k``, ``v`` and
+    ``kv_pos`` are this rank's slice of the cache length; each rank's
+    softmax statistics are merged (``array_ops.merge_softmax``), so every
+    rank gets the attention over the whole cache.  One query chunk (a
+    decode step's); no gradient."""
+    kf, vf, scale = _kv_f32(q, k, v, None)
+    o, m, denom = _softmax_parts(q, kf, vf, q_pos, kv_pos, causal, window,
+                                 scale)
+    return array_ops.merge_softmax(o, m, denom, mesh, axis).to(q.dtype)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool = True,
            window: Optional[int] = None, sm_scale: Optional[float] = None,
@@ -150,26 +195,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rematerialized in the backward pass, so one chunk's score tile is
     alive at a time.
     """
-    hq, hkv = q.shape[1], k.shape[1]
-    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    if hkv != hq:
-        rep = hq // hkv
-        k = torch.repeat_interleave(k, rep, dim=1)
-        v = torch.repeat_interleave(v, rep, dim=1)
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
+    kf, vf, scale = _kv_f32(q, k, v, sm_scale)
 
     def one_chunk(qc, qp):
-        scores = torch.einsum("bhsd,bhld->bhsl", qc.to(torch.float32),
-                              kf) * scale
-        allow = _mask_for_chunk(qp, kv_pos, causal, window)
-        scores = torch.where(allow, scores, -1e30)
-        # the row max carries no gradient (the reference's stop_gradient)
-        m = torch.amax(scores, dim=-1, keepdim=True).detach()
-        p = torch.exp(scores - m)
-        p = torch.where(allow, p, 0.0)
-        denom = torch.sum(p, dim=-1, keepdim=True)
-        o = torch.einsum("bhsl,bhld->bhsd", p, vf)
+        o, _, denom = _softmax_parts(qc, kf, vf, qp, kv_pos, causal, window,
+                                     scale)
         return (o / torch.clamp(denom, min=1e-30)).to(q.dtype)
 
     s = q.shape[2]
@@ -210,12 +240,19 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
 
 
 def _write_slots(buf: torch.Tensor, new: torch.Tensor, slot: int,
-                 dim: int) -> None:
-    """``buf[..., slot:slot+n, ...] = new`` in place along ``dim``, with the
-    start clamped so the update fits, as ``dynamic_update_slice`` does."""
+                 dim: int, length: Optional[int] = None, lo: int = 0) -> None:
+    """``cache[..., slot:slot+n, ...] = new`` in place along ``dim``, with
+    the start clamped so the update fits the cache's ``length`` slots
+    (``buf``'s own by default), as ``dynamic_update_slice`` does.  ``buf``
+    holds slots ``lo ..`` of them (a rank's slice of a sequence-sharded
+    cache) and takes the part of the update that falls there."""
     n = new.shape[dim]
-    start = min(max(slot, 0), buf.shape[dim] - n)
-    buf.narrow(dim, start, n).copy_(new)
+    length = buf.shape[dim] if length is None else length
+    start = min(max(slot, 0), length - n)
+    a, b = max(start, lo), min(start + n, lo + buf.shape[dim])
+    if a < b:
+        buf.narrow(dim, a - lo, b - a).copy_(new.narrow(dim, a - start,
+                                                       b - a))
 
 
 def _build_prefill_cache(cfg: ModelConfig, k, v, positions,
@@ -250,6 +287,48 @@ def _build_prefill_cache(cfg: ModelConfig, k, v, positions,
     else:
         out["k"], out["v"] = ck, cv
     return out
+
+
+def _kv_layout(cfg: ModelConfig, mesh, split: bool,
+               length: int) -> Optional[str]:
+    """How ``sharding/partition.py:cache_specs`` places a layer's KV
+    cache of ``length`` slots over ``model``: ``"heads"`` (the attention's
+    local heads), ``"seq"`` (a slice of the length: the heads do not
+    split) or ``None`` (whole on every rank)."""
+    m = mesh.get("model", 1)
+    if m == 1:
+        return None
+    if cfg.n_kv_heads % m == 0:
+        if not split:
+            raise NotImplementedError(
+                f"{cfg.name}: a KV cache split over heads beside an "
+                f"attention replicated over model ({cfg.n_heads} query "
+                f"heads on {m} ranks) is not ported")
+        return "heads"
+    return "seq" if length % m == 0 else None
+
+
+def _seq_block(cache: Cache, mesh) -> Cache:
+    """This rank's slice of the length of a whole layer cache (``pos`` and
+    ``cursor`` stay whole: they are replicated)."""
+    m, c = mesh["model"], mesh.coords["model"]
+    out = dict(cache)
+    for name in ("k", "v", "k_s", "v_s"):
+        if name in cache:
+            span = cache[name].shape[2] // m
+            out[name] = cache[name].narrow(2, c * span, span).clone()
+    return out
+
+
+def _check_block(k: torch.Tensor, cfg: ModelConfig, layout: Optional[str],
+                 length: int) -> None:
+    """A cache block's shape against the bound rules' spec for its
+    layout (``kv_heads`` or ``kv_seq`` on the split dimension)."""
+    heads = "kv_heads" if layout == "heads" else None
+    seq = "kv_seq" if layout == "seq" else None
+    shard_axes.constrain(k, "batch", heads, seq, None, shape=(
+        shard_axes.global_dim(k.shape[0], "batch"), cfg.n_kv_heads, length,
+        k.shape[-1]))
 
 
 def _pad_cache(k, v, positions, length: int):
@@ -298,11 +377,10 @@ class Attention(nn.Module):
         mesh = shard_axes.group_mesh()
         split = False
         if mesh is not None:
-            if mode != "train" or kv_source is not None:
+            if kv_source is not None:
                 raise NotImplementedError(
-                    "attention on a mesh of ranks runs self-attention in "
-                    "training only; serving and cross-attention across "
-                    "ranks are ROADMAP Queue 1 item 11b")
+                    "cross-attention on a mesh of ranks is not ported "
+                    "(ROADMAP Queue 1 item 11b: encoder-decoders)")
             wq, wk, wv, wo, split = self._mesh_weights(mesh)
             if split:
                 m = mesh["model"]
@@ -328,27 +406,40 @@ class Attention(nn.Module):
             o = attend(q, k, v, q_pos=positions, kv_pos=kv_pos, causal=False,
                        q_chunk=cfg.attn_q_chunk)
         elif mode == "decode":
-            # write into the ring/linear cache in place and attend over it
+            # write into the ring/linear cache in place and attend over
+            # it; on a sequence-sharded cache (this rank holds ``span`` of
+            # its ``length`` slots) the slot's owner writes K/V, every
+            # rank the replicated ``pos``, and the ranks' softmax
+            # statistics merge
             slot = cache["cursor"]
+            length, span = cache["pos"].shape[0], cache["k"].shape[2]
+            lo = 0 if span == length else mesh.coords["model"] * span
+            if mesh is not None:
+                _check_block(cache["k"], cfg, _kv_layout(
+                    cfg, mesh, split, length), length)
             if cfg.kv_quant:
                 kq, ks = kv_quantize(k)
                 vq, vs = kv_quantize(v)
                 for name, new in (("k", kq), ("k_s", ks), ("v", vq),
                                   ("v_s", vs)):
-                    _write_slots(cache[name], new, slot, 2)
+                    _write_slots(cache[name], new, slot, 2, length, lo)
                 ck = kv_dequantize(cache["k"], cache["k_s"], dt)
                 cv = kv_dequantize(cache["v"], cache["v_s"], dt)
             else:
-                _write_slots(cache["k"], k, slot, 2)
-                _write_slots(cache["v"], v, slot, 2)
+                _write_slots(cache["k"], k, slot, 2, length, lo)
+                _write_slots(cache["v"], v, slot, 2, length, lo)
                 ck, cv = cache["k"], cache["v"]
             _write_slots(cache["pos"], positions.to(torch.int32), slot, 0)
-            length = ck.shape[2]
             new_cache = {**cache, "cursor": (slot + s) % length
                          if cfg.window else slot + s}
-            o = attend(q, ck, cv, q_pos=positions, kv_pos=cache["pos"],
-                       causal=causal, window=cfg.window,
-                       q_chunk=cfg.attn_q_chunk)
+            if span == length:
+                o = attend(q, ck, cv, q_pos=positions, kv_pos=cache["pos"],
+                           causal=causal, window=cfg.window,
+                           q_chunk=cfg.attn_q_chunk)
+            else:
+                o = attend_sharded(q, ck, cv, mesh, "model", q_pos=positions,
+                                   kv_pos=cache["pos"][lo:lo + span],
+                                   causal=causal, window=cfg.window)
         else:
             if _use_flash_kernel(cfg, x.device) and (mode != "train"
                                                      or cfg.use_flash):
@@ -364,6 +455,12 @@ class Attention(nn.Module):
             if mode == "prefill":
                 new_cache = _build_prefill_cache(cfg, k, v, positions,
                                                  cache_len or k.shape[2])
+                if mesh is not None:
+                    length = new_cache["pos"].shape[0]
+                    layout = _kv_layout(cfg, mesh, split, length)
+                    if layout == "seq":
+                        new_cache = _seq_block(new_cache, mesh)
+                    _check_block(new_cache["k"], cfg, layout, length)
 
         y = o.transpose(1, 2).reshape(b, s, h * dh) @ wo.to(dt)
         if split:

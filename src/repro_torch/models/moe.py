@@ -27,7 +27,10 @@ ONE ``model`` all-reduce; the dispatch input and the gates enter through
 replicated.  The EP path's metrics are means over the DP axes of each
 rank's own — a different quantity from the einsum path's global means,
 as in the reference — and a decode-shaped input groups the *local*
-batch.  The TP fallback keeps the einsum path's global metrics.
+batch.  The TP fallback keeps the einsum path's global metrics, and
+groups a decode-shaped input over the global batch as the einsum path
+does: the DP ranks' rows are gathered, routed and packed in the global
+order, and each rank keeps its own rows (serving; no gradient).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core import array_ops
 from ..sharding import axes as shard_axes
+from ..sharding import partition
 from .layers import RMSNorm, dense_param
 
 METRICS = ("moe_aux_loss", "router_z_loss", "moe_dropped_frac")
@@ -237,38 +241,60 @@ class MoE(nn.Module):
         e = self.router.shape[1]
         m = mesh.get("model", 1)
         dp = shard_axes.batch_axes()
+        n = shard_axes.axes_size(mesh, dp)
         xn = self.norm(x, cfg.norm_eps)
         xin = array_ops.copy_to_axis(xn, mesh, "model")
         ep = "model" in mesh and e % m == 0
+        one_group = not ep and x.shape[1] < 64 and n > 1
         if ep:
             top_g, top_i, aux, router_z = routing(xn, self.router, cfg)
             gates = array_ops.copy_to_axis(top_g, mesh, "model")
             lo = mesh.coords.get("model", 0) * (e // m)
             y, dropped = self._experts(xin, gates, top_i, e, lo,
                                        lo + e // m)
-        else:
-            if x.shape[1] < 64 and shard_axes.axes_size(mesh, dp) > 1:
+        elif one_group:
+            # a decode-shaped batch is ONE group over the global batch, as
+            # the reference's einsum path sees it: every DP rank's rows,
+            # routed and packed in the global order; this rank keeps its
+            # own rows of the combine
+            if torch.is_grad_enabled():
                 raise NotImplementedError(
-                    "the MoE's expert-TP fallback groups a decode-shaped "
-                    "batch across data-parallel ranks; not ported (ROADMAP "
-                    "Queue 1 item 11b)")
+                    "training a batch of < 64-token rows through the "
+                    "MoE's expert-TP fallback across data-parallel ranks "
+                    "is not ported (ROADMAP Queue 1 item 11b)")
+            rows = xn
+            for a in reversed(dp):
+                rows = array_ops.axis_all_gather(rows, mesh, a)
+            top_g, top_i, aux, router_z = routing(rows, self.router, cfg)
+            y, dropped = self._experts(rows, top_g, top_i, e)
+            y = y.narrow(0, partition.block_index(dp, mesh) * x.shape[0],
+                         x.shape[0])
+        else:
             top_g, top_i, aux, router_z = _global_routing(xn, self.router,
                                                           cfg, mesh, dp)
             gates = array_ops.copy_to_axis(top_g, mesh, "model")
             y, dropped = self._experts(xin, gates, top_i, e)
+        # the routed output is partial over model (an EP slice, or the
+        # fallback's ff columns) unless the expert weights are whole
+        # there; shared experts likewise
+        partial, whole = [], []
+        (partial if ep or self.w_gate.shape[-1] != cfg.expert_d_ff
+         else whole).append(y)
         if self.shared is not None:
             sh = self.shared
             if sh.w_gate.shape[1] != sh.fs:     # ff split over model
-                y = y + sh(xin)
-                y = array_ops.reduce_from_axis(y, mesh, "model")
+                partial.append(sh(xin))
             else:
-                y = array_ops.reduce_from_axis(y, mesh, "model") + sh(xn)
-        else:
+                whole.append(sh(xn))
+        y = None
+        if partial:
+            y = partial[0] + partial[1] if len(partial) == 2 else partial[0]
             y = array_ops.reduce_from_axis(y, mesh, "model")
+        for t in whole:
+            y = t if y is None else y + t
         metrics = {"moe_aux_loss": aux, "router_z_loss": router_z,
                    "moe_dropped_frac": dropped}
-        n = shard_axes.axes_size(mesh, dp)
-        if n > 1:
+        if n > 1 and not one_group:
             # EP: each rank's own metrics, meaned over the DP axes; the
             # fallback's aux and z are global already, its dropped share a
             # mean of equal groups

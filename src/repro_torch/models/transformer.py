@@ -16,17 +16,19 @@ loop, and a cache is a list of per-layer dicts in the same order.
 in float32, the new cache in ``prefill`` and ``decode``, the MoE metrics
 summed over the layers``)``.
 
-On a mesh of ranks (a bound ``sharding.axes.GroupMesh``, training mode)
-the model's parameters are this rank's blocks (``sharding/partition.py``)
-and ``LM.forward`` takes this rank's batch rows: the embedding goes
-through ``embed_lookup``, each layer's FSDP blocks (:attr:`LM.fsdp`) are
+On a mesh of ranks (a bound ``sharding.axes.GroupMesh``) the model's
+parameters are this rank's blocks (``sharding/partition.py``) and
+``LM.forward`` takes this rank's batch rows: the embedding goes through
+``embed_lookup``, each layer's FSDP blocks (:attr:`LM.fsdp`) are
 all-gathered over ``data`` just before the layer runs — inside its remat
 group, so the backward gathers them again and reduce-scatters their
 gradients — the layers run tensor parallel over ``model``
 (``layers.py``, ``moe.py``), and the head is vocab-split over ``model``:
-the logits are this rank's vocab columns.  Only dense and MoE GQA
-decoders train on a mesh; every other family raises, naming its ROADMAP
-item.
+the logits are this rank's vocab columns.  In ``prefill`` and
+``decode`` the cache is this rank's blocks by ``cache_specs``
+(:func:`init_cache` under the binding allocates only those).  Only
+dense and MoE GQA decoders run on a mesh; every other family raises,
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -209,8 +211,9 @@ def refuse_on_mesh(cfg: ModelConfig) -> None:
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} on a mesh of ranks is not ported (ROADMAP "
-            f"Queue 1 item 11b); only dense and MoE GQA decoders train on "
-            f"a mesh")
+            f"Queue 1 item 11b, rest: MLA, Mamba, xLSTM, encoder-decoder "
+            f"and VLM); dense and MoE GQA decoders train and serve on a "
+            f"mesh")
 
 
 class LM(nn.Module):
@@ -298,10 +301,6 @@ class LM(nn.Module):
         mesh = shard_axes.group_mesh()
         if mesh is not None:
             refuse_on_mesh(cfg)
-            if mode != "train" or cache is not None or last_logit_only:
-                raise NotImplementedError(
-                    "an LM on a mesh of ranks trains only; serving across "
-                    "ranks is ROADMAP Queue 1 item 11b")
         dtype = compute_dtype(cfg)
         b = tokens.shape[0]
         x = shard_axes.embed_lookup(self.embed, tokens, cfg.d_model).to(dtype)
@@ -437,8 +436,15 @@ def init_group_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: torch.dtype, device: DeviceLike = None) -> Caches:
-    """Empty decode cache of every layer, in layer order."""
+    """Empty decode cache of every layer, in layer order; under a bound
+    :class:`~repro_torch.sharding.axes.GroupMesh`, this rank's blocks of
+    it (``batch`` is the global batch)."""
     dev = resolve_device(device)
+    mesh = shard_axes.group_mesh()
+    if mesh is not None:
+        from ..sharding import partition
+        return partition.init_cache_blocks(cfg, batch, cache_len, dtype,
+                                           mesh, dev)
     return Caches(c for _ in range(cfg.n_groups)
                   for c in init_group_cache(cfg, batch, cache_len, dtype,
                                             dev))

@@ -206,6 +206,51 @@ def cache_specs(cache, cfg: ModelConfig, mesh: Mesh, rules=None):
     return out
 
 
+#: what an empty cache leaf holds (0 for the others): ``pos`` -1 (an empty
+#: slot), the int8 K/V scales 1e-8, as ``models.transformer`` makes them
+_CACHE_FILL = {"pos": -1, "k_s": 1e-8, "v_s": 1e-8}
+
+
+def init_cache_blocks(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype: torch.dtype, mesh, device):
+    """This rank's blocks of the empty decode cache of ``batch`` (global)
+    sequences under the bound rules' ``cache_specs``: only the blocks are
+    allocated (``cursor`` and ``pos`` are replicated, so whole)."""
+    from ..models.transformer import Caches, init_group_cache
+
+    meta = Caches(c for _ in range(cfg.n_groups)
+                  for c in init_group_cache(cfg, batch, cache_len, dtype,
+                                            torch.device("meta")))
+    specs = cache_specs(meta, cfg, mesh, axes_mod.current_rules())
+    return Caches(
+        {k: torch.full(axes_mod.local_shape(v.shape, spec[k], mesh),
+                       _CACHE_FILL.get(k, 0), dtype=v.dtype, device=device)
+         if torch.is_tensor(v) else v for k, v in layer.items()}
+        for layer, spec in zip(meta, specs))
+
+
+def _map_cache(fn, cache, specs):
+    from ..models.transformer import Caches
+
+    return Caches({k: fn(v, spec[k]) if torch.is_tensor(v) else v
+                   for k, v in layer.items()}
+                  for layer, spec in zip(cache, specs))
+
+
+def shard_cache(cache, specs, mesh):
+    """A whole cache (say, one built on one card) → this rank's blocks
+    under ``specs`` (:func:`cache_specs`), as copies."""
+    return _map_cache(lambda v, spec: shard_tensor(v, spec, mesh).clone(
+        memory_format=torch.contiguous_format), cache, specs)
+
+
+def gather_cache(cache, specs, mesh):
+    """:func:`shard_cache` the other way: every rank's blocks → the whole
+    cache on every rank (a collective; for tests and checks)."""
+    return _map_cache(lambda v, spec: gather_tensor(v, spec, mesh), cache,
+                      specs)
+
+
 # ---------------------------------------------------------------------------
 # placing a state dict on a mesh of ranks
 # ---------------------------------------------------------------------------
@@ -237,6 +282,27 @@ def shard_params(full: Mapping[str, torch.Tensor], specs: Mapping[str, tuple],
         memory_format=torch.contiguous_format) for k, v in full.items()}
 
 
+def block_keeper(specs: Mapping[str, tuple], mesh):
+    """→ ``(keep, kept)``: an ``LM(..., keep=keep)`` callback that puts
+    this rank's block (a copy) in place of each parameter as it is drawn,
+    and the dict of the kept blocks by name."""
+    from torch import nn
+
+    kept: Dict[str, torch.Tensor] = {}
+
+    def keep(prefix: str, module) -> None:
+        for name, p in list(module.named_parameters()):
+            full = f"{prefix}.{name}" if prefix else name
+            if full in kept:
+                continue
+            kept[full] = shard_tensor(p.detach(), specs[full], mesh).clone()
+            owner, _, leaf = name.rpartition(".")
+            setattr(module.get_submodule(owner), leaf,
+                    nn.Parameter(kept[full], requires_grad=False))
+
+    return keep, kept
+
+
 def gather_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     """A copy of the global tensor from every rank's block ``x`` (a
     collective over the axes ``spec`` names; no gradient)."""
@@ -248,6 +314,19 @@ def gather_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
         for a in reversed(axes_mod.entry_axes(entry)):
             x = array_ops.axis_all_gather(x, mesh, a, dim=dim)
     return x
+
+
+def batch_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch-leading ``x`` under the bound
+    rules' ``batch`` spec (they must split evenly)."""
+    spec = axes_mod.spec_for(["batch"])
+    axes_mod.local_shape(x.shape, spec, mesh)
+    return shard_tensor(x, spec, mesh)
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`batch_rows` the other way: the global batch on every rank."""
+    return gather_tensor(x, axes_mod.spec_for(["batch"]), mesh)
 
 
 def gather_params(local: Mapping[str, torch.Tensor],

@@ -292,19 +292,7 @@ def init_sharded_state(cfg: ModelConfig, generator: torch.Generator, mesh,
     optimizer state): every rank draws the same global parameters from
     ``generator``, layer by layer, and keeps its blocks, so the blocks are
     the one-card init's bit for bit and no rank holds the whole model."""
-    kept: Dict[str, torch.Tensor] = {}
-
-    def keep(prefix: str, module: nn.Module) -> None:
-        for name, p in list(module.named_parameters()):
-            full = f"{prefix}.{name}" if prefix else name
-            if full in kept:
-                continue
-            kept[full] = partition.shard_tensor(
-                p.detach(), specs[full], mesh).clone()
-            owner, _, leaf = name.rpartition(".")
-            setattr(module.get_submodule(owner), leaf,
-                    nn.Parameter(kept[full], requires_grad=False))
-
+    keep, kept = partition.block_keeper(specs, mesh)
     LM(cfg, generator, device, param_dtype=torch.float32, keep=keep)
     return _state_of(kept)
 

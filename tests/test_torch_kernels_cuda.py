@@ -353,7 +353,8 @@ def test_windowed_scan_kernel_strided_views(dev, window, op):
 
 # b, hq, hkv, sq, sk, d, causal, window, q_offset: the JAX package's
 # FLASH_CASES (tests/test_kernels.py), then the serving path's head dims
-# (96: phi3, 64 with 15/5 heads: smollm) and a ragged kv_len
+# (96: phi3, 64 with 15/5 heads: smollm), a ragged kv_len and one rank's
+# heads of deepseek-67b on a 1x4 mesh (16/2 of its 64/8)
 FLASH_CASES = [
     (2, 4, 2, 128, 128, 64, True, None, 0),
     (1, 8, 8, 100, 100, 32, True, None, 0),
@@ -365,6 +366,7 @@ FLASH_CASES = [
     (2, 4, 4, 200, 200, 96, True, None, 0),
     (1, 15, 5, 130, 130, 64, True, None, 0),
     (1, 3, 1, 70, 70, 8, True, 16, 0),
+    (8, 16, 2, 1024, 1024, 128, True, None, 0),
 ]
 
 

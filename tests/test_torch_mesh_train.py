@@ -492,14 +492,32 @@ def test_families_outside_the_slice_refuse_a_mesh(arch):
 
 
 def test_serving_refuses_a_mesh():
+    """Serving a GQA decoder runs on a mesh (its prefill on a mesh of
+    sizes 1 is the unbound prefill); serving the families outside the
+    slice and cross-attention still refuse, naming item 11b."""
     from repro_torch.models.transformer import LM
     from repro_torch.sharding import axes as am
 
     cfg = C.step_cfg("smollm-360m")
     model = LM(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.zeros((2, 8), dtype=torch.long)
+    with torch.inference_mode():
+        want, _, _ = model(tokens, mode="prefill", cache_len=12)
+        with am.logical_binding(_one_rank_mesh()):
+            logits, _, _ = model(tokens, mode="train")
+            assert logits.shape == (2, 8, cfg.vocab_size)
+            got, cache, _ = model(tokens, mode="prefill", cache_len=12)
+            np.testing.assert_array_equal(bits(got.numpy()),
+                                          bits(want.numpy()))
+            assert cache[0]["k"].shape == (2, cfg.n_kv_heads, 12,
+                                           cfg.head_dim)
+            attn = model.layers[0].mixer
+            with pytest.raises(NotImplementedError, match="item 11b"):
+                attn(torch.zeros((2, 8, cfg.d_model)),
+                     positions=torch.arange(8), kv_source=torch.zeros(
+                         (2, 4, cfg.d_model)))
+    mla = tconfigs.reduced_config(tconfigs.get_config("minicpm3-4b"))
     with am.logical_binding(_one_rank_mesh()):
-        logits, _, _ = model(tokens, mode="train")
-        assert logits.shape == (2, 8, cfg.vocab_size)
         with pytest.raises(NotImplementedError, match="item 11b"):
-            model(tokens, mode="prefill")
+            LM(mla, torch.Generator().manual_seed(0), "cpu")(
+                tokens, mode="prefill")

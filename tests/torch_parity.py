@@ -65,17 +65,20 @@ def a2a_count(fn, *args):
 """
 
 
-def run_jax_4way(script: str, inputs: dict, timeout: int = 600) -> dict:
-    """Run ``script`` under the JAX package on 4 host devices.
+def run_jax_4way(script: str, inputs: dict, timeout: int = 600,
+                 devices: int = 4) -> dict:
+    """Run ``script`` under the JAX package on 4 host devices (or
+    ``devices``, 4 or more).
 
     The script sees ``inp`` (the ``inputs`` arrays), the helpers
     ``table(prefix)`` / ``save(name, dt, ov)`` / ``run(fn, *args)`` (jit
     and call) / ``a2a_count(fn, *args)``
-    and a 4-shard ``ctx``, and fills the ``out`` dict, which comes back.
+    and a 4-shard ``ctx`` (on the first 4 devices), and fills the ``out``
+    dict, which comes back.
     """
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                        + " --xla_force_host_platform_device_count=4")
+                        + f" --xla_force_host_platform_device_count={devices}")
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     with tempfile.TemporaryDirectory() as tmp:
