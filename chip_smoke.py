@@ -292,16 +292,33 @@ Phases (every failed check raises; nothing is caught):
    virtual run at 2^13 points.  Each rank's exchanges equal the virtual
    run's (3, 4, 2, 1) and each rank launches hash_partition, the probe,
    both segment kernels and ``windowed_scan``; the legs' launches join
-   the ``kernels`` line.  Prints one ``group`` line a leg: backend, world,
-   cards, medians and runs, the ``all_to_all`` ms of one packed shuffle
-   frame of the join (with its bytes), each rank's peak GiB and seconds;
+   the ``kernels`` line.  Then the storage legs on the group, in a
+   ``tempfile`` directory: the ranks write phase 12's left frame
+   partitioned on ``k`` (one exchange; each rank its shards' files, rank
+   0 the manifest; every file's blake2b equal to phase 12's virtual
+   write's), re-enter it into phase 12's join → groupbys (2 exchanges, as
+   phase 12; blocks by blake2b, the atomic sums against the oracle), run
+   phase 15's ``groupby_k`` and ``join_groupby`` TSet pipelines (8 and 3
+   exchanges; each shard's valid rows of the exact lanes against phase
+   15's by blake2b, the sums against float64 oracles — ``groupby_k``'s
+   on each rank's own shards, every present key held once over the
+   ranks), and write phase 26's corpus to disk as ``.hpt`` and
+   curate it there with ``make_training_data(data_root=...)`` (3
+   exchanges; the stream's blake2b equal to phase 26's).  Prints one
+   ``group`` line a leg: backend, world, cards, medians and runs, the
+   ``all_to_all`` ms of one packed shuffle frame of the join (with its
+   bytes), each rank's peak GiB and seconds, and ``storage``: the write's
+   seconds a rank and GB/s, the re-entry read against phase 12's, the
+   TSet pipelines against phase 15's, the corpus legs against phase 26's
+   preprocess;
 30. training across ranks: the training launcher's mesh path
    (``launch.train.mesh_setup``: a 2x2 ``data x model`` mesh of
    sub-groups, ``make_training_data`` on the data axis's group, the
    rank's blocks of the masters drawn from ``--seed``, the FSDP x TP
    ``make_sharded_train_step``) on 4 spawned ranks — NCCL with a card a
    rank where 4 cards exist, else gloo with every rank on card 0 (NCCL
-   refuses two ranks on a device).  (a) smollm-360m as published, float32
+   refuses two ranks on a device).  (a) smollm-360m at published widths,
+   8 of its 32 layers (whole in ``scripts/mesh_train.py``), float32
    masters, bf16 compute, batch 8 x 1024 on phase 26's corpus: the
    curated stream on every rank bit for bit the same pipeline's on 2
    virtual shards on one card (blake2b), every rank launching
@@ -317,11 +334,21 @@ Phases (every failed check raises; nothing is caught):
    float32 compute, batch 2 x 1024: one checked step against the
    one-card step with micro-batches = the data axis (the EP metrics'
    semantics), within ``MOE_MESH_LIMITS``.  Every rank's loss and grad
-   norm the same.  One ``mesh_train`` line a config: backend, world,
+   norm the same.  Then (a)'s elastic checkpoint: after the timed step
+   every rank saves its ``TrainState`` blocks (1.51 GB of float32 leaves
+   at 8 layers, 4.34 GB whole)
+   with ``CheckpointManager.save(..., shardings=)`` in a ``tempfile``
+   directory, and a second spawn of 2 ranks restores them on a
+   ``RESTORE_DIMS`` (2x1) mesh: every restored block's blake2b equals
+   that of ``shard_tensor`` of the leaf gathered on 2x2, and one
+   float32-compute step there gives the 2x2 mesh's float32 loss on the
+   same state and global batch to ``MESH_LOSS_F32_REL``.  One ``mesh_train`` line a config: backend, world,
    cards, step ms (one timed step: the time limit), tokens/s, peak GiB a
    rank, the checked step's model collectives by kind and axis and
-   their ms a rank, the phase's seconds; the ranks' launches join the
-   ``kernels`` line;
+   their ms a rank, the phase's seconds, and (a)'s ``checkpoint``: the
+   files' bytes, save seconds a rank and GB/s, restore seconds and GB/s
+   a rank, the float32 losses; the ranks' launches join the ``kernels``
+   line;
 31. serving across ranks: the reference's prefill and decode cells
    (``launch/cells.py:serve_cell``: each rank's parameter blocks by
    ``param_specs`` drawn from ``--seed``, its cache blocks by
@@ -1614,6 +1641,17 @@ def dir_bytes(root: str) -> int:
                for f in os.listdir(root))
 
 
+def file_digests(root: str, keep=lambda name: True) -> dict:
+    """``name → blake2b`` of the files in ``root`` that ``keep`` names."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        if keep(name):
+            with open(os.path.join(root, name), "rb") as f:
+                out[name] = hashlib.blake2b(f.read(),
+                                            digest_size=16).hexdigest()
+    return out
+
+
 def storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
                   launches, profile: bool):
     """Native ``.hpt`` storage on the card: partitioned re-entry on 4
@@ -1634,6 +1672,7 @@ def storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
         check(ex_w == 1 and counts_w["hash_partition"] > 0,
               f"the partitioned write shuffles once: {ex_w}, {counts_w}")
         nbytes = dir_bytes(lroot)
+        files = file_digests(lroot)  # phase 29's groups write the same
         for i in (1, 2):  # two more writes for the median, then removed
             again = f"{lroot}_{i}"
             writes += timed_runs(
@@ -1664,6 +1703,8 @@ def storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
         check(counts_r["probe"] > 0 and counts_r["hash_partition"] > 0,
               f"re-entry launches: {counts_r}")
         check_main_path(res, left_dev, oracle, "re-entry, 4 shards")
+        out["group_ref"] = {"files": files, "reentry": shard_prints(res, 0),
+                            "exchanges": ex_r}
         del res
         reads += timed_runs(read_left, runs=2)
         runs = timed_runs(reentry)
@@ -1684,6 +1725,7 @@ def storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev, oracle,
               "a 1-shard read of the 4-shard dataset carries no layout")
         del lp1
         write_s, read_s = statistics.median(writes), statistics.median(reads)
+        out["group_ref"].update(write_s=write_s, read_s=read_s)
         out["reentry_4shards"] = dict(
             write_s=write_s, read_s=read_s, writes_s=writes, reads_s=reads,
             bytes_on_disk=nbytes, write_gb_s=nbytes / write_s / 1e9,
@@ -2184,6 +2226,10 @@ TSET_EXCHANGES = {"groupby_k": TSET_CHUNKS, "groupby_g": TSET_CHUNKS,
                   "join_groupby": 3, "reduce": 0, "window": 1, "topk": 0}
 
 
+#: phase 15's pipelines that phase 29's groups run again
+GROUP_TSET = ("groupby_k", "join_groupby")
+
+
 def positive_groupby_close(got, want, tag):
     """Two groupbys of ``v > 0`` rows sorted by key: keys, counts, min and
     max bit for bit, sums and means within ``1e-5`` of the other's (every
@@ -2310,6 +2356,13 @@ def tset_phase(DataFrame, ctx1, ctx4, left, right, events, oracle,
                                  name != "window" else [])
             check(all(counts[name][k] > 0 for k in kernels),
                   f"{tag}: {name} launched {counts[name]}")
+        if ns > 1:  # phase 29's groups run two of the pipelines
+            out["group_ref"] = {
+                "prints": {name: shard_prints({"t": res[name]}, 0,
+                                              valid_only=True)
+                           for name in GROUP_TSET},
+                "exchanges": {name: exchanges[name] for name in GROUP_TSET},
+                "seconds": {name: secs[name] for name in GROUP_TSET}}
         out[tag] = dict(seconds=secs, eager_s=eager_s, exchanges=exchanges,
                         launches=counts, chunks=TSET_CHUNKS,
                         groups_k=int(res["groupby_k"].counts.sum()),
@@ -2891,16 +2944,16 @@ class CkptSpy:
     def __enter__(self):
         spy = self
 
-        def write(mgr, step, names, host):
+        def write(mgr, step, leaves):
             t0 = time.perf_counter()
-            spy.real_write(mgr, step, names, host)
+            spy.real_write(mgr, step, leaves)
             spy.writes.append((sum(t.numel() * t.element_size()
-                                   for t in host),
+                                   for _, _, t in leaves),
                                time.perf_counter() - t0))
 
-        def restore(mgr, template, step=None, device=None):
+        def restore(mgr, template, step=None, shardings=None, device=None):
             t0 = time.perf_counter()
-            out = spy.real_restore(mgr, template, step, device)
+            out = spy.real_restore(mgr, template, step, shardings, device)
             torch.cuda.synchronize()
             spy.restores.append(time.perf_counter() - t0)
             return out
@@ -2910,6 +2963,15 @@ class CkptSpy:
 
     def __exit__(self, *exc):
         self.cls._write, self.cls.restore = self.real_write, self.real_restore
+
+
+def workflow_corpus(cfg, seed: int):
+    """Phase 26's corpus config (phase 29 writes it to disk)."""
+    from repro_torch.data import pipeline as TP
+
+    return TP.CorpusConfig(n_docs=WORKFLOW["n_docs"],
+                           mean_doc_len=WORKFLOW["mean_doc_len"],
+                           vocab_size=cfg.vocab_size, seed=seed)
 
 
 def workflow_phase(dev, seed: int, launches) -> dict:
@@ -2928,9 +2990,7 @@ def workflow_phase(dev, seed: int, launches) -> dict:
 
     cfg = get_config(TRAIN_ARCH)
     ctx4 = HPTMTContext(n_shards=4, device="cuda")
-    ccfg = TP.CorpusConfig(n_docs=WORKFLOW["n_docs"],
-                           mean_doc_len=WORKFLOW["mean_doc_len"],
-                           vocab_size=cfg.vocab_size, seed=seed)
+    ccfg = workflow_corpus(cfg, seed)
     tcfg = TrainConfig(optimizer=OptimizerConfig(
         learning_rate=1e-3, warmup_steps=2,
         total_steps=WORKFLOW["resume_to"]))
@@ -3048,6 +3108,7 @@ def workflow_phase(dev, seed: int, launches) -> dict:
     check(not os.path.exists(ckdir), "the checkpoint directory is gone")
     wbytes = sum(bb for bb, _ in spy.writes)
     return {**out, "stream_tokens": int(stream.shape[0]),
+            "stream_digest": digest(torch.from_numpy(stream)),
             "token_rows": int(toks["token"].shape[0]),
             "checkpoint_saves": len(spy.writes),
             "checkpoint_gb": [bb / 1e9 for bb, _ in spy.writes],
@@ -3317,23 +3378,29 @@ def digest(t: torch.Tensor) -> str:
                            digest_size=16).hexdigest()
 
 
-def shard_prints(res: dict, first: int) -> dict:
+def shard_prints(res: dict, first: int, valid_only: bool = False) -> dict:
     """A chain's results as per-shard prints: each DataFrame's column
     blocks hashed shard by shard (global shard ids from ``first``), its
     counts, partitioning and overflow; each array whole.  Nothing moves
-    between ranks: the shards are compared where they are."""
+    between ranks: the shards are compared where they are.
+    ``valid_only`` hashes each block's valid rows alone (the TSet
+    results: 2^24-row blocks holding a few thousand to a few million
+    rows each)."""
     out = {}
     for name, v in res.items():
-        if hasattr(v, "table"):
-            dt = v.table
+        if hasattr(v, "table") or hasattr(v, "counts"):
+            dt = getattr(v, "table", v)     # a DataFrame or a DistTable
+            report = getattr(v, "overflow_report", None)
+            n = (dt.counts.tolist() if valid_only
+                 else [dt.capacity] * dt.n_local)
             out[name] = {
-                "cols": {k: {first + i: digest(b)
+                "cols": {k: {first + i: digest(b[:n[i]])
                              for i, b in enumerate(c.unbind(0))}
                          for k, c in dt.columns.items()},
                 "counts": {first + i: n
                            for i, n in enumerate(dt.counts.tolist())},
                 "part": repr(dt.partitioning),
-                "report": sorted(dict(v.overflow_report).items())}
+                "report": sorted(dict(report or {}).items())}
         elif isinstance(v, np.ndarray):
             out[name] = v
     return out
@@ -3444,10 +3511,136 @@ def mds_prints(ctx, seed: int) -> tuple:
     return out, digest(delta)
 
 
-def group_rank(ctx, seed: int, want_ex: dict) -> dict:
+def group_storage(ctx, root: str, seed: int, left, right, checked,
+                  prints) -> dict:
+    """Phase 29's storage legs on ``ctx``'s group, under ``root`` (one
+    directory every rank sees): phase 12's partitioned write of the left
+    frame by the ranks and its re-entry into the join and groupbys, phase
+    15's ``groupby_k`` and ``join_groupby`` TSet pipelines, and phase
+    26's corpus written to disk by the ranks and curated from there by
+    ``make_training_data``.  Fills ``prints``; returns the legs' times
+    and this rank's file prints."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dataflow import TSet
+    from repro_torch.data import pipeline as TP
+    from repro_torch.dataframe import DataFrame
+    from repro_torch.io.dataset import write_dist_table
+
+    out = {}
+    lroot = os.path.join(root, "left")
+    ldf = DataFrame.from_dict(left, ctx, bucket_factor=2.0)
+    rdf = DataFrame.from_dict(right, ctx, bucket_factor=2.0)
+    t0 = time.perf_counter()
+    checked("write", lambda: ldf.to_hpt(lroot, partition_by=["k"]))
+    out["write_s"] = time.perf_counter() - t0
+    mine = tuple(f"part-{s:05d}-" for s in ctx.local_shards)
+    out["files"] = file_digests(lroot, lambda n: n.startswith(mine) or (
+        ctx.rank == 0 and n == "_hptmt_manifest.json"))
+    out["write_bytes"] = sum(os.path.getsize(os.path.join(lroot, n))
+                             for n in out["files"] if n.startswith(mine))
+
+    def reentry():
+        t0 = time.perf_counter()
+        lp = DataFrame.read_dataset(lroot, ctx)
+        torch.cuda.synchronize()
+        out["read_s"] = time.perf_counter() - t0
+        return dict(join_groupbys(lp, rdf), lp=lp)
+
+    t0 = time.perf_counter()
+    res = checked("reentry", reentry)
+    out["reentry_s"] = time.perf_counter() - t0
+    check(res["lp"].partitioning == (("k",), 4),
+          f"rank {ctx.rank}: re-entry partitioning {res['lp'].partitioning}")
+    prints["reentry"] = shard_prints(res, ctx.local_shards.start)
+    g = whole_rows(res["g"])            # 1024 groups: whole on every rank
+    prints["reentry_g"] = g if ctx.rank == 0 else None
+    pos = np.ones(left["v"].shape, bool)
+    out["reentry_k_groups"] = check_local_groups(
+        res["k"].table, left["k"], left["v"], pos, ("v_sum",), ctx.device,
+        f"rank {ctx.rank} re-entry groupby k")
+    del res, g
+
+    pipes = tset_pipelines(TSet, ctx, ldf.table, rdf.table, None)
+    for name in GROUP_TSET:
+        t0 = time.perf_counter()
+        ts, got = checked(f"tset_{name}", pipes[name])
+        out[f"tset_{name}_s"] = time.perf_counter() - t0
+        check(ts.overflow_report.is_exact(), f"rank {ctx.rank}: TSet "
+              f"{name} exact")
+        prints[f"tset_{name}"] = shard_prints({"t": got},
+                                              ctx.local_shards.start,
+                                              valid_only=True)
+        if name == "join_groupby":      # 1024 groups: whole on every rank
+            rows = sort_rows_on_card(got, ["g"])
+            prints["tset_join_groupby_rows"] = (rows if ctx.rank == 0
+                                                else None)
+        else:
+            out["tset_k_groups"] = check_local_groups(
+                got, left["k"], left["v"], left["v"] > 0,
+                ("v_sum", "v_mean", "v_min", "v_max", "v_count"),
+                ctx.device, f"rank {ctx.rank} TSet {name}")
+        del ts, got
+    del ldf, rdf, pipes
+
+    cfg = get_config(TRAIN_ARCH)
+    ccfg = workflow_corpus(cfg, seed)
+    croot = os.path.join(root, "corpus")
+    t0 = time.perf_counter()
+    for name, dt in TP.synthetic_corpus(ccfg, ctx).items():
+        # one .hpt file a shard: the scan puts each back on its shard, so
+        # the curated stream is phase 26's (parquet's row groups would
+        # spread a shard's rows over the shards and change which rows the
+        # reference's join drops)
+        write_dist_table(dt, os.path.join(croot, name), ctx=ctx,
+                         format="hpt")
+    out["corpus_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = checked("corpus", lambda: TP.make_training_data(
+        cfg, ctx, TRAIN["batch"], TRAIN["seq"], ccfg, data_root=croot))
+    out["corpus_s"] = time.perf_counter() - t0
+    out["stream"] = digest(torch.from_numpy(data.stream))
+    return out
+
+
+def check_local_groups(dt, k, v, keep, lanes, dev, tag: str) -> tuple:
+    """A groupby on ``k`` of the rows ``keep`` selects, held shard by shard
+    where the shards are (no rank gathers them) against dense per-key
+    oracles of ``v``: every key present and held once here, counts, min
+    and max exact (taken on the card), sums and means within ``1e-5`` of
+    the key's ``sum|v|``.  Returns ``(groups held here, keys present)``:
+    summed over the ranks, the two must agree."""
+    k, v = k[keep], v[keep]
+    cnt = np.bincount(k, minlength=RIGHT_ROWS)
+    total = np.bincount(k, v.astype(np.float64), RIGHT_ROWS)
+    scale = np.bincount(k, np.abs(v).astype(np.float64), RIGHT_ROWS)
+    kd, vd = torch.from_numpy(k).to(dev).long(), torch.from_numpy(v).to(dev)
+    inf = torch.full((RIGHT_ROWS,), float("inf"), device=dev)
+    dense = {"v_count": cnt, "v_sum": total, "v_mean": total / np.maximum(
+        cnt, 1), "v_min": inf.scatter_reduce(0, kd, vd, "amin").cpu().numpy(),
+        "v_max": (-inf).scatter_reduce(0, kd, vd, "amax").cpu().numpy()}
+    rows = {c: torch.cat([dt.columns[c][i, :n] for i, n in
+                          enumerate(dt.counts.tolist())]).cpu().numpy()
+            for c in ("k",) + tuple(lanes)}
+    keys = rows["k"].astype(np.int64)
+    check(bool((cnt[keys] > 0).all()) and np.unique(keys).size == keys.size,
+          f"{tag}: keys present and held once")
+    n = np.maximum(cnt[keys], 1)
+    for lane in lanes:
+        want = dense[lane][keys]
+        if lane in ("v_count", "v_min", "v_max"):
+            check(np.array_equal(rows[lane], want), f"{tag}: {lane}")
+        else:
+            check_close(rows[lane], want,
+                        scale[keys] / (n if lane == "v_mean" else 1),
+                        f"{tag}: {lane}")
+    return int(keys.size), int((cnt > 0).sum())
+
+
+def group_rank(ctx, seed: int, want_ex: dict, store_root: str) -> dict:
     """One rank of phase 29: phases 4, 5, 7 and 27a's chains at full size
-    and MDS at 2^13 points on ``ctx``'s group.  Each chain runs once
-    checked, then 3 times timed; returns the rank's prints of the checked
+    and MDS at 2^13 points on ``ctx``'s group, then the storage legs
+    (:func:`group_storage`) under ``store_root``.  Each chain runs once
+    checked, then timed; returns the rank's prints of the checked
     results, launches, exchanges and times."""
     from repro_torch.apps import mds
     from repro_torch.core import array_ops, table_ops
@@ -3504,6 +3697,8 @@ def group_rank(ctx, seed: int, want_ex: dict) -> dict:
           f"rank {ctx.rank}: the mds pipeline's path is its pieces'")
     runs["mds"] = timed_runs(lambda: mds.mds_pipeline(n, dim, iters, ctx,
                                                       seed), GROUP_RUNS)
+    storage = group_storage(ctx, store_root, seed, left, right, checked,
+                            prints)
 
     # one packed shuffle frame of the main path's join (the left side:
     # k, g, v and the carried h1, h2 lanes; 2x head-room buckets)
@@ -3517,7 +3712,8 @@ def group_rank(ctx, seed: int, want_ex: dict) -> dict:
     return {"rank": ctx.rank, "prints": prints, "launches": launches.total,
             "exchanges": exchanges,
             "median_s": {k: statistics.median(v) for k, v in runs.items()},
-            "runs_s": runs, "a2a_ms": statistics.median(a2a) * 1e3,
+            "runs_s": runs, "storage": storage,
+            "a2a_ms": statistics.median(a2a) * 1e3,
             "a2a_bytes": ctx.n_local * ctx.n_shards * (bucket + 1) * 5 * 4,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_start}
@@ -3534,14 +3730,22 @@ def check_group_sums(sums: dict, oracle, tag: str) -> None:
     check_close(k["v_sum"][order], o["v_sum"], o["v_abs"], f"{tag}: k v_sum")
 
 
-def check_group_leg(tag: str, ranks: list, ref: dict, oracle, dev,
-                    seed: int) -> dict:
-    """Hold a leg's prints against the virtual phases': phases 4, 5 and 7's
-    kept prints, phase 27a's operators and MDS rerun here on 4 virtual
-    shards."""
+def virtual_reruns(dev, seed: int) -> dict:
+    """Phase 27a's operators and MDS at :data:`MDS_GROUP`'s size on 4
+    virtual shards: what both legs are held against."""
     from repro_torch.core import HPTMTContext
 
     ctx4 = HPTMTContext(n_shards=4, device="cuda")
+    mds, delta = mds_prints(ctx4, seed)
+    return {"collectives": collective_prints(ctx4, dev, seed), "mds": mds,
+            "mds_delta": delta}
+
+
+def check_group_leg(tag: str, ranks: list, ref: dict, oracle,
+                    virtual: dict) -> dict:
+    """Hold a leg's prints against the virtual phases': phases 4, 5, 7, 12,
+    15 and 26's kept prints, and phase 27a's operators and MDS rerun on 4
+    virtual shards (:func:`virtual_reruns`)."""
     same = {}
     for chain in ("main", "setops", "ordered"):
         got = merge_prints([r["prints"][chain] for r in ranks])
@@ -3549,7 +3753,7 @@ def check_group_leg(tag: str, ranks: list, ref: dict, oracle, dev,
                                    ATOMIC_SUMS if chain == "main" else None))
     check_group_sums(ranks[0]["prints"]["main_sums"], oracle,
                      f"{tag} main path")
-    want = collective_prints(ctx4, dev, seed)
+    want = virtual["collectives"]
     got = {}
     for r in ranks:
         for key, d in r["prints"]["collectives"].items():
@@ -3561,7 +3765,7 @@ def check_group_leg(tag: str, ranks: list, ref: dict, oracle, dev,
     for key, w in want.items():
         check(got[key] == w, f"{tag} {key}: bit for bit against 4 virtual "
               f"shards")
-    want, want_delta = mds_prints(ctx4, seed)
+    want, want_delta = dict(virtual["mds"]), virtual["mds_delta"]
     got = merge_prints([r["prints"]["mds"] for r in ranks])
     for r in ranks:
         check(r["prints"]["mds_delta"] == want_delta,
@@ -3575,7 +3779,57 @@ def check_group_leg(tag: str, ranks: list, ref: dict, oracle, dev,
     check(dpath <= MDS_LIMITS["paths_1v4"],
           f"{tag} mds: stress path against 4 virtual shards {dpath}")
     same["mds_path_max_rel"] = dpath
+
+    # the storage legs against phases 12, 15 and 26
+    st = ref["storage"]
+    files = {}
+    for r in ranks:
+        files.update(r["storage"]["files"])
+    check(files == st["files"], f"{tag}: the ranks' partitioned files are "
+          f"phase 12's, byte for byte")
+    got = merge_prints([r["prints"]["reentry"] for r in ranks])
+    same.update({f"reentry.{k}": v for k, v in compare_prints(
+        got, st["reentry"], f"{tag} re-entry", ATOMIC_SUMS).items()})
+    check_groupby_g(ranks[0]["prints"]["reentry_g"], oracle,
+                    f"{tag} re-entry")
+    for key in ("reentry_k_groups", "tset_k_groups"):
+        held = sum(r["storage"][key][0] for r in ranks)
+        check(held == ranks[0]["storage"][key][1], f"{tag} {key}: the "
+              f"ranks hold {held} groups, one for each present key")
+    for name in GROUP_TSET:
+        got = merge_prints([r["prints"][f"tset_{name}"] for r in ranks])
+        atomic = {"t": ATOMIC_SUMS["g"] if name == "join_groupby"
+                  else ("v_sum", "v_mean")}
+        same.update({f"tset_{name}.{k}": v for k, v in compare_prints(
+            got, ref["tset"]["prints"][name], f"{tag} TSet {name}",
+            atomic).items()})
+    check_groupby_g(ranks[0]["prints"]["tset_join_groupby_rows"], oracle,
+                    f"{tag} TSet join_groupby")
+    for r in ranks:
+        check(r["storage"]["stream"] == ref["corpus"]["stream_digest"],
+              f"{tag} rank {r['rank']}: the disk corpus's curated stream "
+              f"is phase 26's, bit for bit")
     return same
+
+
+def storage_line(ranks: list, ref: dict) -> dict:
+    """A leg's storage figures beside phases 12, 15 and 26's."""
+    st = [r["storage"] for r in ranks]
+    slowest = max(s["write_s"] for s in st)
+    return {
+        "write_s": [s["write_s"] for s in st],
+        "write_gb_s": sum(s["write_bytes"] for s in st) / slowest / 1e9,
+        "write_gb_s_rank": [s["write_bytes"] / s["write_s"] / 1e9
+                            for s in st],
+        "phase12_write_s": ref["storage"]["write_s"],
+        "reentry_read_s": [s["read_s"] for s in st],
+        "phase12_read_s": ref["storage"]["read_s"],
+        "reentry_join_groupbys_s": [s["reentry_s"] for s in st],
+        "tset_s": {n: [s[f"tset_{n}_s"] for s in st] for n in GROUP_TSET},
+        "phase15_s": ref["tset"]["seconds"],
+        "corpus_write_s": [s["corpus_write_s"] for s in st],
+        "corpus_prepare_s": [s["corpus_s"] for s in st],
+        "phase26_preprocess_s": ref["corpus"]["preprocess_s"]}
 
 
 def group_phase(ref, oracle, dev, seed: int, launches) -> list:
@@ -3587,16 +3841,21 @@ def group_phase(ref, oracle, dev, seed: int, launches) -> list:
     from repro_torch.core import HPTMTContext
     from repro_torch.launch.mesh import run_ranks
 
-    want_ex = dict(ref["exchanges"], mds=1)
+    want_ex = dict(ref["exchanges"], mds=1, write=1,
+                   reentry=ref["storage"]["exchanges"],
+                   corpus=ref["corpus"]["exchanges"],
+                   **{f"tset_{n}": ref["tset"]["exchanges"][n]
+                      for n in GROUP_TSET})
     n_cards = torch.cuda.device_count()
-    lines = []
+    lines, virtual = [], None
     for tag, backend, world in (
             ("A", "nccl", 1),
             ("B", "nccl" if n_cards >= GROUP_WORLD else "gloo",
              GROUP_WORLD)):
         t0 = time.perf_counter()
-        if world == 1:
-            with tempfile.TemporaryDirectory(prefix="hptmt_group_") as tmp:
+        with tempfile.TemporaryDirectory(prefix="hptmt_group_") as tmp:
+            store = os.path.join(tmp, "data")
+            if world == 1:
                 dist.init_process_group(
                     backend, rank=0, world_size=1,
                     store=dist.FileStore(os.path.join(tmp, "store"), 1),
@@ -3604,17 +3863,19 @@ def group_phase(ref, oracle, dev, seed: int, launches) -> list:
                 try:
                     ranks = [group_rank(HPTMTContext(
                         n_shards=4, device="cuda:0", group=dist.group.WORLD),
-                        seed, want_ex)]
+                        seed, want_ex, store)]
                 finally:
                     dist.destroy_process_group()
-        else:
-            ranks = run_ranks(group_rank, world, backend, "cuda", n_shards=4,
-                              args=(seed, want_ex),
-                              timeout_s=GROUP_TIMEOUT_S)
+            else:
+                ranks = run_ranks(group_rank, world, backend, "cuda",
+                                  n_shards=4, args=(seed, want_ex, store),
+                                  timeout_s=GROUP_TIMEOUT_S)
         leg_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        same = check_group_leg(f"group leg {tag}", ranks, ref, oracle, dev,
-                               seed)
+        if virtual is None:
+            virtual = virtual_reruns(dev, seed)
+        same = check_group_leg(f"group leg {tag}", ranks, ref, oracle,
+                               virtual)
         for r in ranks:
             for k in ("hash_partition", "probe", "segment_reduce_fused",
                       "segment_reduce", "windowed_scan"):
@@ -3633,6 +3894,7 @@ def group_phase(ref, oracle, dev, seed: int, launches) -> list:
             "a2a_bytes": ranks[0]["a2a_bytes"],
             "peak_gib": [r["peak_gib"] for r in ranks],
             "rank_seconds": [r["seconds"] for r in ranks],
+            "storage": storage_line(ranks, ref),
             "seconds": leg_s,
             "check_seconds": time.perf_counter() - t0 - leg_s,
             "atomic_sums_bit_equal": same})
@@ -3646,8 +3908,11 @@ def group_phase(ref, oracle, dev, seed: int, launches) -> list:
 MESH_WORLD = 4
 MESH_DIMS, MESH_NAMES = (2, 2), ("data", "model")
 MESH_TIMEOUT_S = 900
-#: (a) smollm-360m as published (bf16 compute) on phase 26's corpus (2^15
-#: documents, ~2^24 token rows), 1 checked step and 3 timed; (b)
+#: (a) smollm-360m at published widths (bf16 compute) on phase 26's
+#: corpus (2^15 documents, ~2^24 token rows), 1 checked step and 1 timed,
+#: then its elastic checkpoint (2x2 → 2x1); cut to 8 of its 32 layers
+#: here for the time limit (a 1.51 GB state), whole in
+#: ``scripts/mesh_train.py`` (4.34 GB); (b)
 #: qwen2-moe-a2.7b at published widths, 2 of its 24 layers (~1.8 B
 #: parameters: ~29 GB of float32 masters and Adam state over the ranks),
 #: one checked step on the pipeline's default corpus, in float32 compute:
@@ -3655,18 +3920,21 @@ MESH_TIMEOUT_S = 900
 #: (my first chip calls: 0.84 of a leaf's largest element, where the
 #: float32 CPU parity holds to 1e-6)
 MESH_TRAIN = {
-    "smollm": {"arch": "smollm-360m", "layers": None, "batch": 8,
+    "smollm": {"arch": "smollm-360m", "layers": 8, "batch": 8,
                "seq": 1024, "timed": 1, "dtype": None,
-               "corpus": {"n_docs": 1 << 15, "mean_doc_len": 512}},
+               "corpus": {"n_docs": 1 << 15, "mean_doc_len": 512},
+               "checkpoint": True},
     "qwen2_moe": {"arch": "qwen2-moe-a2.7b", "layers": 2, "batch": 2,
                   "seq": 1024, "timed": 0, "dtype": "float32",
-                  "corpus": {}},
+                  "corpus": {}, "checkpoint": False},
 }
 #: (a): the gradients and their norm within ``BF16_VS_F32`` (about 3x
 #: phase 25's bf16-vs-float32 readings); the loss in float32 compute
 #: (a forward of the same blocks) to float32 reordering, and the bf16
 #: losses within 3x the larger of the two steps' own bf16-vs-float32 gaps
 MESH_LOSS_F32_REL = 1e-6
+#: (a)'s checkpoint leg: the 2x2 state restored on this mesh of ranks
+RESTORE_DIMS = (2, 1)
 #: (b), float32 compute, against the one-card step with micro-batches =
 #: the data axis (the EP metrics' semantics: each shard's own, meaned);
 #: the leaf gap leaves room for one routing near-tie rounded the other way
@@ -3770,7 +4038,142 @@ def leaf_gap(block: torch.Tensor, full, spec, mesh) -> tuple:
             float(maxes[0] / maxes[1].clamp_min(1e-30)))
 
 
-def mesh_train_rank(ctx, seed: int, name: str) -> dict:
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A checkpoint tree of dicts by the manager's leaf names (path parts
+    joined by ``__``)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f"{prefix}__{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def restore_meshes() -> list:
+    """Each rank's :data:`RESTORE_DIMS` mesh coordinates, as meshes of
+    sizes alone (enough to cut a block)."""
+    from repro_torch.sharding.axes import GroupMesh
+
+    n = int(np.prod(RESTORE_DIMS))
+    return [GroupMesh(dict(zip(MESH_NAMES, RESTORE_DIMS)), {},
+                      {a: int(c) for a, c in
+                       zip(MESH_NAMES, np.unravel_index(r, RESTORE_DIMS))})
+            for r in range(n)]
+
+
+def f32_step_loss(cfg, tcfg, mesh, state, batch) -> float:
+    """One sharded step of this rank's ``state`` in float32 compute on
+    the global ``batch`` → its loss (the state is updated in place)."""
+    from repro_torch.sharding import axes as am
+    from repro_torch.train import train_step as TS
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with am.logical_binding(mesh):
+        step, _, _ = TS.make_sharded_train_step(cfg32, tcfg, mesh,
+                                                TS.meta_state(cfg32))
+        _, m = step(state, TS.local_batch(batch, mesh))
+    return float(m["loss"])
+
+
+def f32_loss(cfg, tcfg, mesh, specs, params, batch) -> float:
+    """The loss that :func:`f32_step_loss` reports, by the step's forward
+    alone (no backward, no update: a third of the step's collectives)."""
+    from repro_torch.sharding import axes as am
+    from repro_torch.train import train_step as TS
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with am.logical_binding(mesh), torch.no_grad():
+        return float(TS.sharded_loss_fn(
+            TS.bind(TS.sharded_model(cfg32, specs), params), cfg32, tcfg,
+            TS.local_batch(batch, mesh), mesh)[1]["loss"])
+
+
+def mesh_checkpoint_save(ctx, run, cfg, tcfg, state, ckdir: str) -> dict:
+    """Phase 30 (a)'s save: this rank's ``TrainState`` blocks through
+    ``CheckpointManager.save(..., shardings=)``; then the digest of every
+    :data:`RESTORE_DIMS` rank's block of each leaf, cut from the leaf
+    gathered anew (leaf ``i`` hashed by rank ``i % world``), and the
+    float32-compute loss of the next step on the next global batch (kept
+    beside the checkpoint for the restore leg)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import state_tree
+
+    mesh, specs = run.mesh, run.specs
+    tree = state_tree(state)
+    sspecs = state_tree(TS.TrainState(specs, TS.OptState(specs, specs, ())))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(ckdir).save(1, tree, shardings=(sspecs, mesh))
+    save_s = time.perf_counter() - t0
+    flat, fspecs = flat_tree(tree), flat_tree(sspecs)
+    targets = restore_meshes()
+    want = [{} for _ in targets]
+    for i, (name, leaf) in enumerate(flat.items()):
+        whole = partition.gather_tensor(leaf, fspecs[name], mesh)
+        if i % ctx.world == ctx.rank:
+            for j, m in enumerate(targets):
+                want[j][name] = digest(partition.shard_tensor(
+                    whole, fspecs[name], m))
+        del whole
+    batch = next(run.data)
+    if ctx.rank == 0:
+        np.savez(os.path.join(ckdir, "batch.npz"),
+                 **{k: v.cpu().numpy() for k, v in batch.items()})
+    t0 = time.perf_counter()
+    loss = f32_loss(cfg, tcfg, mesh, specs, state.params, batch)
+    return {"save_s": save_s, "f32_loss_s": time.perf_counter() - t0,
+            "bytes": (dir_bytes(os.path.join(ckdir, "step_1"))
+                      if ctx.rank == 0 else None),
+            "want": want, "loss_f32": loss}
+
+
+def mesh_restore_rank(ctx, ckdir: str, conf: dict) -> dict:
+    """One rank of phase 30 (a)'s restore leg on :data:`RESTORE_DIMS`:
+    the 2x2 checkpoint restored into this rank's blocks, each hashed, and
+    the float32-compute step on the kept global batch."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.sharding import axes as am
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import state_tree, tree_state
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = ctx.device
+    cfg = mesh_cfg(conf)
+    tcfg = TS.TrainConfig(optimizer=OptimizerConfig(warmup_steps=2,
+                                                    total_steps=100))
+    mesh = mesh_context(RESTORE_DIMS, MESH_NAMES)
+    with am.logical_binding(mesh):
+        _, sspec, _ = TS.make_sharded_train_step(cfg, tcfg, mesh,
+                                                 TS.meta_state(cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = CheckpointManager(ckdir).restore(
+        state_tree(TS.meta_state(cfg)), shardings=(state_tree(sspec), mesh),
+        device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = {k: digest(v) for k, v in flat_tree(tree).items()}
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in flat_tree(tree).values())
+    with np.load(os.path.join(ckdir, "batch.npz")) as f:
+        batch = {k: torch.from_numpy(f[k]).to(dev) for k in f.files}
+    state = TS.place_state(tree_state(tree), dev)
+    del tree
+    t0 = time.perf_counter()
+    loss = f32_step_loss(cfg, tcfg, mesh, state, batch)
+    return {"rank": ctx.rank, "coords": dict(mesh.coords), "got": got,
+            "restore_s": restore_s, "block_bytes": nbytes,
+            "f32_step_s": time.perf_counter() - t0, "loss_f32": loss,
+            "seconds": time.perf_counter() - t_start}
+
+
+def mesh_train_rank(ctx, seed: int, name: str, conf: dict,
+                    ckdir: str = None) -> dict:
     """One rank of phase 30: the launcher's mesh set-up
     (``launch.train.mesh_setup``), a checked first step against the
     one-card step (on rank 0), then timed steps and one step with the
@@ -3784,7 +4187,6 @@ def mesh_train_rank(ctx, seed: int, name: str) -> dict:
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
-    conf = MESH_TRAIN[name]
     dev = ctx.device
     cfg = mesh_cfg(conf)
     tcfg = TS.TrainConfig(optimizer=OptimizerConfig(warmup_steps=2,
@@ -3880,6 +4282,8 @@ def mesh_train_rank(ctx, seed: int, name: str) -> dict:
         return float(m["loss"])             # waits for the step
 
     runs = timed_runs(one, conf["timed"]) if conf["timed"] else []
+    ckpt = (mesh_checkpoint_save(ctx, run, cfg, tcfg, state, ckdir)
+            if ckdir is not None else None)
     coll_ms = {k: v * 1e3 for k, v in coll_s.items()}
     launches.read()
     return {"rank": ctx.rank, "stream": digest(
@@ -3891,7 +4295,55 @@ def mesh_train_rank(ctx, seed: int, name: str) -> dict:
             "collective_ms": coll_ms,
             "runs_s": runs, "setup_s": setup_s, "grads_s": grads_s,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "seconds": time.perf_counter() - t_start}
+            "checkpoint": ckpt, "seconds": time.perf_counter() - t_start}
+
+
+def mesh_restore_leg(ranks: list, ckdir: str, name: str, conf: dict,
+                     n_cards: int) -> dict:
+    """Phase 30 (a)'s restore: a second spawn of ranks on
+    :data:`RESTORE_DIMS` restores the 2x2 checkpoint (NCCL with a card a
+    rank where enough cards exist, else gloo on card 0); every block
+    must hash as ``shard_tensor`` of the saved leaf, and the float32
+    step's loss must be the 2x2 step's on the same state and batch."""
+    from repro_torch.launch.mesh import run_ranks
+
+    world = int(np.prod(RESTORE_DIMS))
+    backend = "nccl" if n_cards >= world else "gloo"
+    t0 = time.perf_counter()
+    got = run_ranks(mesh_restore_rank, world, backend, "cuda",
+                    args=(ckdir, conf), timeout_s=MESH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    saved = [r["checkpoint"] for r in ranks]
+    loss = saved[0]["loss_f32"]
+    want = [{k: v for r in saved for k, v in r["want"][j].items()}
+            for j in range(world)]
+    check(all(r["loss_f32"] == loss for r in saved),
+          f"{name}: the 2x2 float32 step's loss is the same on every rank")
+    rels = []
+    for r, m in zip(got, restore_meshes()):
+        check(r["coords"] == m.coords, f"{name} restore rank {r['rank']}: "
+              f"coordinates {r['coords']}")
+        check(r["got"] == want[r["rank"]], f"{name} restore rank "
+              f"{r['rank']}: every restored block's blake2b is that of "
+              f"shard_tensor of the gathered leaf")
+        rels.append(abs(r["loss_f32"] - loss) / abs(loss))
+        check(rels[-1] <= MESH_LOSS_F32_REL, f"{name} restore rank "
+              f"{r['rank']}: float32 step loss {r['loss_f32']} against the "
+              f"2x2 step's {loss} (rel {rels[-1]})")
+    nbytes, save_s = saved[0]["bytes"], [r["save_s"] for r in saved]
+    return {"mesh": "x".join(map(str, RESTORE_DIMS)), "backend": backend,
+            "bytes": nbytes, "leaves": len(want[0]), "save_s": save_s,
+            "save_gb_s": nbytes / max(save_s) / 1e9,
+            "restore_s": [r["restore_s"] for r in got],
+            "restore_gb_s": [r["block_bytes"] / r["restore_s"] / 1e9
+                             for r in got],
+            "loss_f32_2x2": loss,
+            "loss_f32_restored": [r["loss_f32"] for r in got],
+            "loss_f32_rel": max(rels),
+            "f32_s": {"2x2_forward": [r["f32_loss_s"] for r in saved],
+                      "restored_step": [r["f32_step_s"] for r in got]},
+            "restore_rank_seconds": [r["seconds"] for r in got],
+            "seconds": seconds}
 
 
 def mesh_train_phase(seed: int, launches) -> None:
@@ -3915,8 +4367,17 @@ def mesh_train_phase(seed: int, launches) -> None:
         want = TP.preprocess(TP.synthetic_corpus(ccfg, ctx2), ccfg, ctx2)
         want = digest(torch.from_numpy(want))
         torch.cuda.empty_cache()
-        ranks = run_ranks(mesh_train_rank, MESH_WORLD, backend, "cuda",
-                          args=(seed, name), timeout_s=MESH_TIMEOUT_S)
+        restored = None
+        with tempfile.TemporaryDirectory(prefix="hptmt_ckpt_") as ckdir:
+            ranks = run_ranks(
+                mesh_train_rank, MESH_WORLD, backend, "cuda",
+                args=(seed, name, conf,
+                      ckdir if conf["checkpoint"] else None),
+                timeout_s=MESH_TIMEOUT_S)
+            if conf["checkpoint"]:
+                torch.cuda.empty_cache()
+                restored = mesh_restore_leg(ranks, ckdir, name, conf,
+                                            n_cards)
         seconds = time.perf_counter() - t0
         agree = ranks[0]["agree"]
         print(f"  {name} sharded step vs one card: {agree}", flush=True)
@@ -3958,7 +4419,7 @@ def mesh_train_phase(seed: int, launches) -> None:
             "setup_s": [r["setup_s"] for r in ranks],
             "checked_grads_s": [r["grads_s"] for r in ranks],
             "rank_seconds": [r["seconds"] for r in ranks],
-            "seconds": seconds})
+            "checkpoint": restored, "seconds": seconds})
         torch.cuda.empty_cache()
     for line in lines:
         emit("mesh_train", **line)
@@ -4564,10 +5025,12 @@ def main() -> int:
     cartesian_phase(DataFrame, ctx1, ctx4, args.seed, dev, launches)
 
     # 12. storage: partitioned re-entry and pushdown, native .hpt
-    for tag, fields in storage_phase(DataFrame, ctx1, ctx4, left, right,
-                                     left_dev, oracle, launches,
-                                     args.profile).items():
+    storage = storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev,
+                            oracle, launches, args.profile)
+    group_ref["storage"] = storage.pop("group_ref")
+    for tag, fields in storage.items():
         emit(tag, **fields)
+    del storage
 
     # 13. out of core: spilled join, groupby and window, 1 and 4 shards
     for tag, fields in spill_phase(DataFrame, ctx1, ctx4, left, right,
@@ -4583,10 +5046,12 @@ def main() -> int:
 
     # 15. the TSet dataflow over the main and ordered cells, 1 and 4 shards
     t0 = time.perf_counter()
-    for tag, fields in tset_phase(DataFrame, ctx1, ctx4, left, right, events,
-                                  oracle, ord_oracle, launches,
-                                  args.profile).items():
+    tset = tset_phase(DataFrame, ctx1, ctx4, left, right, events, oracle,
+                      ord_oracle, launches, args.profile)
+    group_ref["tset"] = tset.pop("group_ref")
+    for tag, fields in tset.items():
         emit(tag, **fields)
+    del tset
     del ord_oracle, events
     new_s = {"tset": time.perf_counter() - t0}
 
@@ -4625,7 +5090,11 @@ def main() -> int:
     emit("train_step", **train_phase(dev, args.seed, launches, args.profile))
     train_s["train_step"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    emit("train_workflow", **workflow_phase(dev, args.seed, launches))
+    workflow = workflow_phase(dev, args.seed, launches)
+    group_ref["corpus"] = {k: workflow[k] for k in
+                           ("stream_digest", "exchanges", "preprocess_s")}
+    emit("train_workflow", **workflow)
+    del workflow
     train_s["workflow"] = time.perf_counter() - t0
     emit("train_seconds", total=sum(train_s.values()), **train_s)
 

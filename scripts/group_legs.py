@@ -5,7 +5,10 @@
 Run from the root of a checkout on a machine with an H100 (or four). It
 builds the kernels, runs phases 4, 5 and 7's chains on 4 virtual shards
 (the reference the group legs are held against; one checked run, then 3
-timed, printed as a ``virtual_4shards`` line), then ``chip_smoke``'s
+timed, printed as a ``virtual_4shards`` line), phases 12 and 15 (whose
+partitioned files, re-entry results and TSet pipelines the storage legs
+are held against) and phase 26's curation of its corpus on 4 virtual
+shards (the stream the disk-corpus leg must give), then ``chip_smoke``'s
 ``group_phase``: leg A on a 1-rank NCCL group in this process, leg B on 4
 spawned ranks — NCCL with a card a rank where 4 cards exist, else gloo
 with every rank on card 0 — printing one ``group`` line a leg and the
@@ -24,6 +27,23 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+
+
+def corpus_ref(ctx4, launches) -> dict:
+    """Phase 26's corpus curated on 4 virtual shards: the stream's digest,
+    the exchanges and the seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as TP
+
+    ccfg = cs.workflow_corpus(get_config(cs.TRAIN_ARCH), 0)
+    launches.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = TP.preprocess(TP.synthetic_corpus(ccfg, ctx4), ccfg, ctx4)
+    seconds = time.perf_counter() - t0
+    _, exchanges = launches.read()
+    return {"stream_digest": cs.digest(torch.from_numpy(stream)),
+            "exchanges": exchanges, "preprocess_s": seconds}
 
 
 def main():
@@ -71,6 +91,18 @@ def main():
     cs.emit("virtual_4shards",
             median_s={k: statistics.median(v) for k, v in vt.items()},
             runs_s=vt)
+    ctx1 = HPTMTContext(n_shards=1, device="cuda")
+    left_dev = {k: torch.from_numpy(v).to(dev) for k, v in left.items()}
+    storage = cs.storage_phase(DataFrame, ctx1, ctx4, left, right, left_dev,
+                               oracle, launches, False)
+    ref["storage"] = storage.pop("group_ref")
+    tset = cs.tset_phase(DataFrame, ctx1, ctx4, left, right, events, oracle,
+                         cs.ordered_oracle(events), launches, False)
+    ref["tset"] = tset.pop("group_ref")
+    for tag, fields in {**storage, **tset}.items():
+        cs.emit(tag, **fields)
+    del left_dev, storage, tset
+    ref["corpus"] = corpus_ref(ctx4, launches)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     for line in cs.group_phase(ref, oracle, dev, 0, launches):

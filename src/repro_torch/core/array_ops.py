@@ -82,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import operator as _op
+import pickle
 import time
 from typing import Dict, List, Sequence, Tuple
 
@@ -149,6 +150,57 @@ def _every_shard(values: Sequence, group) -> list:
     if group is None:
         return list(values)
     return list(_gather_stack(torch.stack(list(values)), group).unbind(0))
+
+
+def transport_device(group) -> torch.device:
+    """Where the group's collectives take their tensors: the rank's
+    current card under NCCL, the host under gloo."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def gather_objects(obj, group=None) -> list:
+    """Every rank's picklable ``obj``, in rank order (``[obj]`` without a
+    group): the pickles' bytes, padded to the longest, through the
+    group's all-gather.  For host metadata (file lists, row counts,
+    errors), never for rows of a table; the bytes come only from this
+    program's own ranks."""
+    if group is None:
+        return [obj]
+    dev = transport_device(group)
+    data = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+    sizes = _gather_stack(torch.tensor([data.numel()], device=dev),
+                          group).tolist()
+    buf = torch.zeros((1, max(sizes)), dtype=torch.uint8)
+    buf[0, :data.numel()] = data
+    every = _gather_stack(buf.to(dev), group).cpu()
+    return [pickle.loads(every[r, :n].numpy().tobytes())
+            for r, n in enumerate(sizes)]
+
+
+def raise_together(error, group=None) -> None:
+    """Make one rank's failure every rank's: each rank passes the
+    exception it caught (or ``None``), and if any rank failed, every rank
+    raises — its own exception, or else the lowest failing rank's.  No
+    rank is left waiting in a later collective its peers never call."""
+    if group is None:
+        if error is not None:
+            raise error
+        return
+    payload = error
+    if error is not None:
+        try:
+            pickle.dumps(error)
+        except Exception:  # noqa: BLE001 — an unpicklable exception
+            payload = RuntimeError(f"{type(error).__name__}: {error}")
+    every = gather_objects(payload, group)
+    if error is not None:
+        raise error
+    failed = [(r, e) for r, e in enumerate(every) if e is not None]
+    if failed:
+        rank, exc = failed[0]
+        raise exc from RuntimeError(f"rank {rank} failed")
 
 
 def shard_span(values: Sequence, group=None) -> Tuple[int, int]:

@@ -12,12 +12,14 @@ The same kernels power both styles; only the driver differs.  That is the
 paper's Fig 9: dataflow operators and eager operators working together in
 a single parallel program.
 
-On a process group (``ctx.group``) a TSet runs as far as the training
-data pipeline uses it: :meth:`TSet.from_table`, :meth:`~TSet.select`,
-:meth:`~TSet.project`, :meth:`~TSet.join` and :meth:`~TSet.collect`, over
-the table operators on the group — each rank chunks and concatenates its
-own shards.  Every other source, operator and sink refuses a group
-(ROADMAP Queue 1 item 11c).
+On a process group (``ctx.group``) a TSet runs over the table operators
+on the group: each rank chunks, transforms and concatenates its own
+shards, every barrier's exchange is the group's, and the sinks return
+what the virtual run returns (``collect`` this rank's blocks of it;
+``reduce``, ``quantile`` and ``to_numpy`` the same value on every rank).
+Two methods still refuse a group, since what they hand over to does not
+run there yet (ROADMAP Queue 1 item 11c, part c): :meth:`TSet.lazy`
+(the lazy planner) and :meth:`TSet.from_spill` (the spill engine).
 
 One result differs from the reference on purpose: ``reduce(col, "mean")``
 returns the true mean (the summed per-chunk sums over the summed counts,
@@ -68,10 +70,6 @@ class TSet:
         return self._last_report
 
     # -- sources -----------------------------------------------------------
-    def _virtual(self, what: str) -> None:
-        """Refuse a method that does not run on a group yet."""
-        self._ctx.require_virtual(f"TSet.{what}", "11c")
-
     @classmethod
     def _source(cls, chunks: Sequence[DistTable], ctx: HPTMTContext,
                 report=None) -> "TSet":
@@ -83,7 +81,6 @@ class TSet:
     @classmethod
     def from_chunks(cls, chunks: Sequence[DistTable],
                     ctx: HPTMTContext) -> "TSet":
-        ctx.require_virtual("TSet.from_chunks", "11c")
         return cls._source(chunks, ctx)
 
     @classmethod
@@ -97,7 +94,8 @@ class TSet:
         ``.chunks()`` / ``.report`` so core never imports the spill
         layer."""
         ctx = ctx or result._ctx
-        ctx.require_virtual("TSet.from_spill", "11c")
+        ctx.require_virtual("TSet.from_spill (it sources the spill "
+                            "engine's runs)", "11c, part c")
         return cls._source(result.chunks(), ctx, result.report)
 
     @classmethod
@@ -143,7 +141,6 @@ class TSet:
                     ) -> "TSet":
         """Apply a per-chunk columnar transform (adds/replaces columns).
         ``fn`` sees ``(n_shards, capacity, ...)`` column blocks."""
-        self._virtual("map_columns")
         return TSet(_Node("map", (self._node,), {"fn": fn}), self._ctx)
 
     # -- barrier (shuffling) operators ---------------------------------------
@@ -153,19 +150,16 @@ class TSet:
 
     def groupby(self, keys: Sequence[str], aggs: Sequence[Tuple[str, str]],
                 **kw) -> "TSet":
-        self._virtual("groupby")
         return TSet(_Node("groupby", (self._node,),
                           {"keys": tuple(keys), "aggs": tuple(aggs),
                            "kw": kw}), self._ctx)
 
     def orderby(self, by, **kw) -> "TSet":
         """Global multi-key sort at the barrier (materializing)."""
-        self._virtual("orderby")
         return TSet(_Node("orderby", (self._node,), {"by": by, "kw": kw}),
                     self._ctx)
 
     def union(self, other: "TSet", **kw) -> "TSet":
-        self._virtual("union")
         return TSet(_Node("union", (self._node, other._node), {"kw": kw}),
                     self._ctx)
 
@@ -174,7 +168,6 @@ class TSet:
         """Windowed aggregation barrier: chunks merge, one sample-sort
         exchange orders them (elided if the layout holds), the window
         lanes evaluate in place.  Truncated windows raise."""
-        self._virtual("window")
         return TSet(_Node("window", (self._node,),
                           {"partition_by": partition_by,
                            "order_by": order_by, "aggs": tuple(aggs),
@@ -184,7 +177,6 @@ class TSet:
         """Streaming top-k via the combiner pattern: each chunk reduces to
         its own k candidates (bounded memory), and the barrier merges the
         per-chunk winners — no chunk ever rematerializes."""
-        self._virtual("topk")
         return TSet(_Node("topk", (self._node,),
                           {"by": by, "k": k, "kw": kw}), self._ctx)
 
@@ -220,7 +212,8 @@ class TSet:
         materialization's overflow report is carried into the lazy
         lineage.
         """
-        self._virtual("lazy")
+        self._ctx.require_virtual("TSet.lazy (it roots the lazy "
+                                  "planner)", "11c, part c")
         from ..plan import LazyFrame
         from ..plan.logical import source
 
@@ -233,7 +226,6 @@ class TSet:
 
         A mean merges as the sum of the chunks' sums over the sum of
         their counts, never as a mean of means."""
-        self._virtual("reduce")
         from ..kernels.segment_reduce import ops as segops
 
         chunks = self._run()
@@ -259,13 +251,11 @@ class TSet:
     def quantile(self, column: str, qs, **kw):
         """Column quantiles at the barrier (materializing; exact by
         default via the range layout — ``table_ops.quantile``)."""
-        self._virtual("quantile")
         dt = _concat_chunks(self._run(), self._ctx)
         return table_ops.quantile(dt, column, qs, ctx=self._ctx, **kw)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Bridge to NumPy (paper Fig 13 line 28 / Fig 17 line 18)."""
-        self._virtual("to_numpy")
         return self.collect().to_numpy()
 
 
@@ -336,7 +326,7 @@ def _execute(node: _Node, ctx: HPTMTContext,
                 if part is not None and \
                         set(partitioning_keys(part)) & set(updates):
                     part = None
-                out.append(DistTable(new_cols, c.counts, part))
+                out.append(DistTable(new_cols, c.counts, part, c.group))
         return out
 
     if node.kind == "groupby":
@@ -366,7 +356,7 @@ def _execute(node: _Node, ctx: HPTMTContext,
         report.add("groupby.slots", ov)
         final = DistTable(
             table_ops.finalize_agg_cols(final.columns, aggs, merge_aggs),
-            final.counts, final.partitioning)
+            final.counts, final.partitioning, final.group)
         return [final]
 
     # materializing barriers

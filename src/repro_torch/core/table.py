@@ -344,10 +344,13 @@ class DistTable:
         """Assemble per-shard local tables into a DistTable.
 
         The inverse of :meth:`shard_table`: ``tables[i]`` becomes shard
-        ``i``'s block (padded to the common capacity).  ``partitioning`` is
-        attached verbatim, so callers assert the layout evidence truthfully.
+        ``i``'s block (padded to the common capacity, the largest of all
+        ``n_shards`` tables).  On the context's group ``tables`` still
+        lists every shard, as :meth:`from_numpy_blocks` takes every
+        shard's blocks, and each rank copies only its own shards' blocks.
+        ``partitioning`` is attached verbatim, so callers assert the
+        layout evidence truthfully.
         """
-        ctx.require_virtual("DistTable.from_shard_tables", "11c")
         if len(tables) != ctx.n_shards:
             raise ValueError(f"{len(tables)} shard tables for a "
                              f"{ctx.n_shards}-shard context")
@@ -357,12 +360,25 @@ class DistTable:
                 raise ValueError(f"shard {i} columns {t.column_names} != "
                                  f"shard 0 columns {names}")
         cap = max(t.capacity for t in tables)
-        cols = {k: torch.stack([_pad_axis0(t.columns[k].to(ctx.device), cap)
-                                for t in tables])
-                for k in names}
-        counts = torch.stack([torch.clamp(t.num_rows.to(ctx.device), max=cap)
-                              for t in tables])
-        return cls(cols, counts, partitioning)
+        return cls.from_local_tables(
+            [tables[s] for s in ctx.local_shards], ctx, cap, partitioning)
+
+    @classmethod
+    def from_local_tables(cls, tables: Sequence[Table], ctx: HPTMTContext,
+                          capacity: int,
+                          partitioning: Partitioning = None) -> "DistTable":
+        """Stack the tables of the shards this process holds
+        (``ctx.local_shards``, in order), each padded to ``capacity`` —
+        which must be the same on every rank."""
+        if len(tables) != ctx.n_local:
+            raise ValueError(f"{len(tables)} tables for the {ctx.n_local} "
+                             f"shards this process holds")
+        cols = {k: torch.stack([_pad_axis0(t.columns[k].to(ctx.device),
+                                           capacity) for t in tables])
+                for k in tables[0].column_names}
+        counts = torch.stack([torch.clamp(t.num_rows.to(ctx.device),
+                                          max=capacity) for t in tables])
+        return cls(cols, counts, partitioning, ctx.group)
 
     @classmethod
     def from_numpy_blocks(cls, columns: Dict[str, np.ndarray], counts,

@@ -15,7 +15,8 @@ stream comes back to the host, and the batches go to the device as
 int32 tensors.
 
 On a process group (``ctx.group``: the data axis of a training mesh)
-each rank builds and curates its own shards, and the ordered stream is
+each rank builds — or, from a disk corpus, scans — and curates its own
+shards, and the ordered stream is
 gathered to every rank, bit for bit the virtual run's on as many shards
 (the reference's drop quirk included: it depends on the shard count).
 Every rank then draws the same global batches from the seed; a sharded
@@ -161,9 +162,6 @@ def make_training_data(cfg: ModelConfig, ctx: HPTMTContext, batch: int,
     ``data_root`` — from an on-disk dataset corpus through the storage
     scan.  Encoder-decoder and VLM configs get stub frontend embeddings,
     ``0.02 * normal`` float32, as the reference makes them."""
-    if data_root is not None:
-        ctx.require_virtual("the training data pipeline from a disk corpus",
-                            "11c")
     ccfg = ccfg or CorpusConfig(vocab_size=cfg.vocab_size)
     corpus = (disk_corpus(data_root, ctx) if data_root is not None
               else synthetic_corpus(ccfg, ctx))

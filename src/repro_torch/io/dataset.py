@@ -110,36 +110,51 @@ def write_dataset(root: str,
     """
     fmt = _default_format(format)
     os.makedirs(root, exist_ok=True)
+    written = [_write_shard(root, i, cols, n, fmt, rows_per_group)
+               for i, (cols, n) in enumerate(shards)]
+    _write_manifest(root, fmt, written, partitioning)
+    return root
+
+
+def _write_shard(root: str, shard_id: int, cols: Dict[str, np.ndarray],
+                 n: int, fmt: str, rows_per_group: Optional[int]
+                 ) -> Tuple[Schema, List[dict]]:
+    """Write one shard's files → its schema and manifest file entries."""
+    cols = {k: np.asarray(v)[:n] for k, v in cols.items()}
     files: List[dict] = []
-    schema: Optional[Schema] = None
-    for shard_id, (cols, n) in enumerate(shards):
-        cols = {k: np.asarray(v)[:n] for k, v in cols.items()}
-        s = Schema.from_columns(cols)
-        if schema is None:
-            schema = s
-        elif s != schema:
+    if fmt == "parquet":
+        from .parquet import write_parquet
+
+        name = f"part-{shard_id:05d}-000.parquet"
+        write_parquet(os.path.join(root, name), cols, n,
+                      rows_per_group=rows_per_group)
+        files.append({"path": name, "rows": int(n), "shard": shard_id})
+    else:
+        per = int(rows_per_group) if rows_per_group else max(int(n), 1)
+        starts = range(0, max(int(n), 1), per) if n else [0]
+        for g, start in enumerate(starts):
+            stop = min(start + per, int(n))
+            name = f"part-{shard_id:05d}-{g:03d}.hpt"
+            write_hpt(os.path.join(root, name),
+                      {k: v[start:stop] for k, v in cols.items()},
+                      stop - start)
+            files.append({"path": name, "rows": int(stop - start),
+                          "shard": shard_id})
+    return Schema.from_columns(cols), files
+
+
+def _write_manifest(root: str, fmt: str,
+                    written: Sequence[Tuple[Schema, List[dict]]],
+                    partitioning: Partitioning) -> None:
+    """The manifest of every shard's ``(schema, files)``, in shard order,
+    written last (atomic rename)."""
+    if not written:
+        raise ValueError("write_dataset needs at least one shard")
+    schema = written[0][0]
+    for shard_id, (s, _) in enumerate(written):
+        if s != schema:
             raise ValueError(f"shard {shard_id} schema {s} != shard 0 "
                              f"schema {schema}")
-        if fmt == "parquet":
-            from .parquet import write_parquet
-
-            name = f"part-{shard_id:05d}-000.parquet"
-            write_parquet(os.path.join(root, name), cols, n,
-                          rows_per_group=rows_per_group)
-            files.append({"path": name, "rows": int(n), "shard": shard_id})
-        else:
-            per = int(rows_per_group) if rows_per_group else max(int(n), 1)
-            starts = range(0, max(int(n), 1), per) if n else [0]
-            for g, start in enumerate(starts):
-                stop = min(start + per, int(n))
-                name = f"part-{shard_id:05d}-{g:03d}.hpt"
-                write_hpt(os.path.join(root, name),
-                          {k: v[start:stop] for k, v in cols.items()},
-                          stop - start)
-                files.append({"path": name, "rows": int(stop - start),
-                              "shard": shard_id})
-    if schema is None:
-        raise ValueError("write_dataset needs at least one shard")
     # the manifest's {"keys", "n_shards"} schema records HASH evidence
     # only (scan re-entry feeds the §4 elision sites); a range layout
     # (orderby output) is not representable on disk yet — normalize it to
@@ -153,14 +168,13 @@ def write_dataset(root: str,
         "partitioning": (None if partitioning is None else
                          {"keys": list(partitioning[0]),
                           "n_shards": int(partitioning[1])}),
-        "files": files,
+        "files": [f for _, files in written for f in files],
     }
     tmp = os.path.join(root, MANIFEST_NAME + ".tmp")
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     os.replace(tmp, os.path.join(root, MANIFEST_NAME))
-    return root
 
 
 def write_dist_table(dt: DistTable, root: str, *, ctx,
@@ -174,21 +188,40 @@ def write_dist_table(dt: DistTable, root: str, *, ctx,
     manifest records the ``(keys, n_shards)`` evidence, so a later scan on
     a matching context re-enters the partitioned world without moving a
     row.
-    """
-    ctx.require_virtual("dataset writes", "11c")
-    from ..core import table_ops
 
+    On the context's process group every rank calls this (``root`` one
+    directory every rank sees): each writes the files of its own shards,
+    then the ranks gather every shard's schema and file entries, and rank
+    0 writes the manifest — only after every shard file exists, and
+    before any rank returns.  The files and the manifest are the virtual
+    run's, byte for byte; a failure on any rank raises on every rank.
+    """
+    from ..core import table_ops
+    from ..core.array_ops import gather_objects, raise_together
+
+    fmt = _default_format(format)
     overflow = 0
     if partition_by is not None:
         dt, ov = table_ops.shuffle(dt, list(partition_by), ctx=ctx)
         overflow = int(ov)
-    shards = []
-    for i in range(dt.n_shards):
-        t = dt.shard_table(i)
-        shards.append((t.to_numpy(), int(t.num_rows)))
-    write_dataset(root, shards, format=format,
-                  partitioning=dt.partitioning,
-                  rows_per_group=rows_per_group)
+    err, mine = None, []
+    try:
+        os.makedirs(root, exist_ok=True)
+        for i, shard in enumerate(ctx.local_shards):
+            t = dt.shard_table(i)
+            mine.append(_write_shard(root, shard, t.to_numpy(),
+                                     int(t.num_rows), fmt, rows_per_group))
+    except Exception as e:  # noqa: BLE001 — every rank raises
+        err = e
+    raise_together(err, ctx.group)
+    written = [w for rank in gather_objects(mine, ctx.group) for w in rank]
+    err = None
+    if ctx.rank == 0:
+        try:
+            _write_manifest(root, fmt, written, dt.partitioning)
+        except Exception as e:  # noqa: BLE001 — every rank raises
+            err = e
+    raise_together(err, ctx.group)
     return overflow
 
 

@@ -25,6 +25,11 @@ page:
     a following join/groupby on those keys elides its shuffle
     (DESIGN.md §4).
 
+On a process group (``ctx.group``) every rank plans the same
+``_by_shard`` from the metadata and reads only the fragments of its own
+shards; capacities, overflow and :class:`ScanStats` are the global plan's
+and the group's sums, bit for bit the virtual run's on as many shards.
+
 Hardened reads (DESIGN.md §13.5): every fragment run passes through the
 ``scan.read`` chaos-injection site and, with a
 :class:`~repro_torch.resilience.FaultPolicy`, transient ``OSError``-family
@@ -158,7 +163,6 @@ class ScanSource:
                  bucket_factor: float = 1.0,
                  allow_narrowing: bool = False,
                  on_error: str = "raise", policy=None):
-        ctx.require_virtual("dataset scans", "11c")
         if on_error not in ("raise", "quarantine"):
             raise ValueError(f"on_error={on_error!r}; expected 'raise' "
                              f"or 'quarantine'")
@@ -392,7 +396,7 @@ class ScanSource:
                 for c in self.out_columns}, 0
 
     def _shard_table(self, frags: Sequence[Fragment],
-                     capacity: int) -> Tuple[Table, int]:
+                     capacity: int) -> Table:
         """Concatenate a shard's fragments (original row order), truncate
         at ``capacity`` per the §2 count-and-drop contract."""
         parts = self._load_fragments(frags) if frags else []
@@ -407,7 +411,7 @@ class ScanSource:
             cols = {k: v[:capacity] for k, v in cols.items()}
             n = capacity
             self.stats.rows_overflowed += overflow
-        return self._table(cols, n, capacity), overflow
+        return self._table(cols, n, capacity)
 
     def _table(self, cols: Dict[str, np.ndarray], n: int,
                capacity: int) -> Table:
@@ -416,23 +420,59 @@ class ScanSource:
                  for k, v in cols.items()}
         return Table.from_arrays(tcols, num_rows=n, capacity=capacity)
 
+    _IO_COUNTERS = ("rows_scanned", "rows_selected", "rows_overflowed",
+                    "fragments_quarantined", "rows_quarantined")
+
+    def _sync_stats(self) -> None:
+        """Every rank's I/O counters summed and quarantine records joined
+        in rank (so shard) order: on a group every rank then reads the
+        virtual run's stats."""
+        from ..core.array_ops import gather_objects
+
+        mine = ([getattr(self.stats, k) for k in self._IO_COUNTERS],
+                self.quarantined)
+        every = gather_objects(mine, self.ctx.group)
+        for i, k in enumerate(self._IO_COUNTERS):
+            setattr(self.stats, k, sum(c[i] for c, _ in every))
+        self.quarantined = [q for _, qs in every for q in qs]
+
+    def _local_round(self, load):
+        """Run ``load()`` over this rank's shards; a failure on any rank
+        raises on every rank."""
+        from ..core.array_ops import raise_together
+
+        out, err = None, None
+        try:
+            out = load()
+        except Exception as e:  # noqa: BLE001 — every rank raises
+            err = e
+        raise_together(err, self.ctx.group)
+        return out
+
     def to_dist_table(self) -> Tuple[DistTable, int]:
-        """Materialize the whole scan → ``(DistTable, overflow)``."""
+        """Materialize the whole scan → ``(DistTable, overflow)``.
+
+        On the context's group each rank reads only the fragments of its
+        own shards (:attr:`ctx.local_shards`) at the global plan's
+        capacity; the overflow and :attr:`stats` are the group's, the
+        same on every rank, and rank 0 writes the quarantine sidecar."""
         self._reset_io_stats()
-        overflow = 0
-        tables = []
         with telemetry.span("io.scan.materialize",
                             shards=self.ctx.n_shards) as sp:
-            for frags in self._by_shard:
-                t, ov = self._shard_table(frags, self.shard_capacity)
-                tables.append(t)
-                overflow += ov
-            dt = DistTable.from_shard_tables(tables, self.ctx,
-                                             partitioning=self._partitioning)
+            def load():
+                return [self._shard_table(self._by_shard[s],
+                                          self.shard_capacity)
+                        for s in self.ctx.local_shards]
+            parts = self._local_round(load)
+            self._sync_stats()
+            overflow = self.stats.rows_overflowed
+            dt = DistTable.from_local_tables(
+                parts, self.ctx, self.shard_capacity,
+                partitioning=self._partitioning)
             sp.block(dt)
             sp.attrs["rows"] = self.stats.rows_selected
             sp.attrs["overflow"] = overflow
-        if self.quarantined:
+        if self.quarantined and self.ctx.rank == 0:
             self._write_quarantine_manifest()
         rec = telemetry.current()
         if rec is not None:
@@ -451,7 +491,9 @@ class ScanSource:
         sources, barrier operators) bounds per-*operator* state by the
         chunk size but holds the chunk list itself.  Chunks inherit the
         partitioned-re-entry metadata, so a downstream combiner barrier
-        can elide its merge shuffle.
+        can elide its merge shuffle.  On the context's group each rank
+        loads its own shards' fragments of a round, and :attr:`stats`
+        become the group's once the generator is exhausted.
         """
         self._reset_io_stats()
         rounds = max((len(fr) for fr in self._by_shard), default=0)
@@ -460,16 +502,20 @@ class ScanSource:
                      for fr in self._by_shard]
             cap = max((f.rows for f in frags if f is not None), default=1)
             cap = max(cap, 1)
-            tables = []
-            for f in frags:
-                if f is None:
-                    tables.append(self._table(self._empty_shard()[0], 0,
-                                              cap))
-                else:
-                    t, _ = self._shard_table([f], cap)
-                    tables.append(t)
-            yield DistTable.from_shard_tables(
-                tables, self.ctx, partitioning=self._partitioning)
+
+            def load():
+                tables = []
+                for s in self.ctx.local_shards:
+                    if frags[s] is None:
+                        tables.append(self._table(self._empty_shard()[0], 0,
+                                                  cap))
+                    else:
+                        tables.append(self._shard_table([frags[s]], cap))
+                return tables
+            yield DistTable.from_local_tables(
+                self._local_round(load), self.ctx, cap,
+                partitioning=self._partitioning)
+        self._sync_stats()
 
     def to_tset(self):
         """The TSet bridge for out-of-core dataflow pipelines."""

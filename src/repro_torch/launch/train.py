@@ -20,7 +20,10 @@ over ``model``), draws the same global masters from seed 0 and keeps its
 blocks, and steps its data-parallel rows of each global batch through
 ``make_sharded_train_step``.  Called as ``main([...])`` inside a group
 that already exists (``run_ranks``), it uses that group.  ``--ckpt``
-with a mesh raises: the checkpoint manager does not run on a group yet.
+with a mesh raises: the reference's mesh branch takes no checkpoints (it
+ignores the flag), and the launcher adds no feature the reference lacks.
+A sharded state is saved and restored, onto any mesh, with
+``CheckpointManager.save/restore(..., shardings=(specs, mesh))``.
 """
 from __future__ import annotations
 
@@ -88,8 +91,11 @@ def main(argv=None):
     else:
         if args.ckpt is not None:
             raise NotImplementedError(
-                "--ckpt on a mesh of ranks: the checkpoint manager does not "
-                "run on a process group yet (ROADMAP Queue 1 item 11c)")
+                "--ckpt with --mesh: the reference's mesh branch takes no "
+                "checkpoints (it ignores the flag), so this launcher adds "
+                "none; save and restore a sharded state with "
+                "CheckpointManager.save/restore(..., shardings=(specs, "
+                "mesh))")
         main.last_history = _mesh_loop(args, cfg, tcfg, ccfg, dims, names)
     print("train launcher done")
     return 0

@@ -40,7 +40,7 @@ class LazyFrame:
 
     def __init__(self, node: L.LogicalNode, ctx,
                  report: Optional[OverflowReport] = None):
-        ctx.require_virtual("the lazy planner", "11c")
+        ctx.require_virtual("the lazy planner", "11c, part c")
         self._node = node
         self._ctx = ctx
         self._report = report if report is not None else OverflowReport()

@@ -201,7 +201,7 @@ def stage_hook(ckpt: StageCheckpointer, *, ctx, policy=None,
     step and commits the result (never while ``torch.compile`` traces:
     commits are host I/O on concrete tensors).
     """
-    ctx.require_virtual("stage checkpoints", "11c")
+    ctx.require_virtual("stage checkpoints", "11c, part c")
     have = set(ckpt.committed_stages()) if committed is None else committed
 
     def hook(step, layout, thunk):

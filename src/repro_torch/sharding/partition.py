@@ -263,14 +263,21 @@ def block_index(entry, mesh) -> int:
     return i
 
 
-def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's block of the global ``x`` under ``spec``."""
-    for dim, entry in enumerate(spec):
+def block_slices(shape, spec, mesh) -> Tuple[slice, ...]:
+    """The index of this rank's block of a global ``shape`` under
+    ``spec`` (for a tensor, or a memory-mapped array on disk)."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
         n = axes_mod.axes_size(mesh, entry)
-        if n > 1:
-            size = x.shape[dim] // n
-            x = x.narrow(dim, block_index(entry, mesh) * size, size)
-    return x
+        size = dim // n
+        start = block_index(entry, mesh) * size if n > 1 else 0
+        out.append(slice(start, start + size))
+    return tuple(out)
+
+
+def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the global ``x`` under ``spec`` (a view)."""
+    return x[block_slices(x.shape, spec, mesh)]
 
 
 def shard_params(full: Mapping[str, torch.Tensor], specs: Mapping[str, tuple],

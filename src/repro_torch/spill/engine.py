@@ -498,7 +498,7 @@ def spill_join(left, right, keys: Sequence[str], *, ctx: HPTMTContext,
     still counted (it is a semantic cap, not a memory one) under
     ``"join.fanout"`` in the report.
     """
-    ctx.require_virtual("the spill engine", "11c")
+    ctx.require_virtual("the spill engine", "11c, part c")
     report = report if report is not None else OverflowReport()
     keys = tuple(keys)
     store = SpillStore(workdir, policy=policy)
@@ -567,7 +567,7 @@ def spill_groupby(src, keys: Sequence[str],
     Each key lives in exactly one spill partition, so per-partition
     grouping is exact with no cross-partition merge step.
     """
-    ctx.require_virtual("the spill engine", "11c")
+    ctx.require_virtual("the spill engine", "11c, part c")
     report = report if report is not None else OverflowReport()
     keys = tuple(keys)
     store = SpillStore(workdir, policy=policy)
@@ -623,7 +623,7 @@ def spill_window(src, partition_by, order_by, aggs, *, ctx: HPTMTContext,
     host-sorted by its carried lanes, block-sliced, and evaluated on the
     range-elided window path — zero exchanges, zero sorts.
     """
-    ctx.require_virtual("the spill engine", "11c")
+    ctx.require_virtual("the spill engine", "11c, part c")
     report = report if report is not None else OverflowReport()
     pkeys = (partition_by,) if isinstance(partition_by, str) \
         else tuple(partition_by)

@@ -61,7 +61,7 @@ def _task_hash(name: str, deps: Sequence[str]) -> str:
 class WorkflowEngine:
     def __init__(self, journal_path: Optional[str] = None,
                  policy: Optional[FaultPolicy] = None):
-        refuse_in_group("the workflow engine", "11c")
+        refuse_in_group("the workflow engine", "11c, part c")
         self.tasks: Dict[str, Task] = {}
         self.journal_path = journal_path
         self.policy = policy  # engine-wide default retry policy

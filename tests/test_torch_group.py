@@ -171,6 +171,8 @@ def test_features_outside_the_slice_refuse_a_group(group, name):
         kind, msg = r["refusals"][name]
         assert kind == "NotImplementedError", (name, kind, msg)
         assert "ROADMAP Queue 1 item 11" in msg, msg
+        if name != "serve_launcher":
+            assert "item 11c, part c" in msg, msg
 
 
 def test_every_rank_gets_the_training_stream(group, virtual):

@@ -451,7 +451,9 @@ def test_train_launcher_on_a_2x2_mesh(ranks):
         kind, msg = got["bad_mesh"]
         assert kind == "ValueError" and "world size is 4" in msg, msg
         kind, msg = got["ckpt"]
-        assert kind == "NotImplementedError" and "item 11c" in msg, msg
+        assert kind == "NotImplementedError" and \
+            "mesh branch takes no checkpoints" in msg and \
+            "shardings=" in msg, msg
 
 
 def test_mesh_coordinates_are_row_major(ranks):

@@ -275,10 +275,9 @@ def run_cases(ctx) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# what a group refuses (ROADMAP items 11b/11c)
+# what a group refuses (ROADMAP items 11b and 11c, part c)
 # ---------------------------------------------------------------------------
 def _refusals(ctx, tmp: str) -> dict:
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.dataflow import TSet
     from repro_torch.launch import serve
     from repro_torch.resilience.stages import StageCheckpointer, stage_hook
@@ -292,23 +291,19 @@ def _refusals(ctx, tmp: str) -> dict:
         "spill_window": lambda: df.window(["g"], ["k"]).agg(
             [("v", "sum")], rows=2, spill=True),
         "lazy_planner": lambda: df.lazy(),
-        "dataset_write": lambda: df.to_hpt(tmp),
-        "dataset_read": lambda: DataFrame.read_dataset(tmp, ctx),
-        "tset_groupby": lambda: TSet.from_table(df.table, ctx).groupby(
-            ["g"], [("v", "sum")]),
+        "tset_lazy": lambda: TSet.from_table(df.table, ctx).lazy(),
+        # refused before the spill result is read
+        "tset_from_spill": lambda: TSet.from_spill(None, ctx),
         "stage_checkpoints": lambda: stage_hook(
             StageCheckpointer(tmp, "f"), ctx=ctx),
-        "checkpoint_manager": lambda: CheckpointManager(tmp),
         "workflow": lambda: WorkflowEngine(),
         "serve_launcher": lambda: serve.main(["--arch", "smollm-360m"]),
-        "from_shard_tables": lambda: DistTable.from_shard_tables([], ctx),
     }
 
 
 REFUSED = ("spill_join", "spill_groupby", "spill_window", "lazy_planner",
-           "dataset_write", "dataset_read", "tset_groupby",
-           "stage_checkpoints", "checkpoint_manager", "workflow",
-           "serve_launcher", "from_shard_tables")
+           "tset_lazy", "tset_from_spill", "stage_checkpoints", "workflow",
+           "serve_launcher")
 
 
 #: the training launcher's run on a group: reduced smollm, 2 steps, a
