@@ -76,7 +76,7 @@ def main():
     launches.reset()
     res7 = cs.ordered_path(DataFrame, ctx4, events, 2.0, launches.sorts)
     _, ex7 = launches.read()
-    ref = {"main": ref_main, "setops": ref_set,
+    ref = {"main": ref_main, "setops": ref_set, "right": right,
            "ordered": cs.shard_prints(res7, 0),
            "exchanges": {"main": ex4, "setops": ex5, "ordered": ex7}}
     del res7

@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with an H100 (or four). It
 builds the kernels, runs phase 25 (smollm-360m's one-card step at batch
 8 x 1024, the yardstick of phase 30's step times; ``--skip-one-card``
 leaves it out) and ``chip_smoke``'s ``mesh_train_phase``: smollm-360m
-whole (``chip_smoke.py`` cuts it to 8 of its 32 layers) with its elastic
+whole (``chip_smoke.py`` cuts it to 4 of its 32 layers and its corpus to
+2^13 documents) with its elastic
 checkpoint — the 4.34 GB ``TrainState`` saved on 2x2 and restored by a
 second spawn of 2 ranks on 2x1 — and qwen2-moe-a2.7b (2 of 24 layers) on
 a 2x2 mesh of 4 spawned ranks — NCCL with a card a rank where 4 cards
@@ -53,7 +54,9 @@ def main():
         cs.emit("train_step_seconds", total=time.perf_counter() - t0)
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    cs.MESH_TRAIN["smollm"] = dict(cs.MESH_TRAIN["smollm"], layers=None)
+    cs.MESH_TRAIN["smollm"] = dict(
+        cs.MESH_TRAIN["smollm"], layers=None,
+        corpus={"n_docs": 1 << 15, "mean_doc_len": 512})
     cs.mesh_train_phase(args.seed, launches)
     cs.emit("mesh_train_seconds", total=time.perf_counter() - t0)
     cs.emit("launches", **launches.total)

@@ -184,23 +184,72 @@ def raise_together(error, group=None) -> None:
     exception it caught (or ``None``), and if any rank failed, every rank
     raises — its own exception, or else the lowest failing rank's.  No
     rank is left waiting in a later collective its peers never call."""
-    if group is None:
-        if error is not None:
-            raise error
-        return
-    payload = error
-    if error is not None:
-        try:
-            pickle.dumps(error)
-        except Exception:  # noqa: BLE001 — an unpicklable exception
-            payload = RuntimeError(f"{type(error).__name__}: {error}")
-    every = gather_objects(payload, group)
+    raise_first(error, [error] if group is None
+                else gather_objects(picklable(error), group))
+
+
+def raise_first(error, every) -> None:
+    """Raise this rank's ``error``, or else the first exception of
+    ``every`` (each rank's, in rank order); nothing when all are
+    ``None``."""
     if error is not None:
         raise error
     failed = [(r, e) for r, e in enumerate(every) if e is not None]
     if failed:
         rank, exc = failed[0]
         raise exc from RuntimeError(f"rank {rank} failed")
+
+
+def picklable(error):
+    """``error`` itself when it pickles, else a ``RuntimeError`` naming it."""
+    if error is None:
+        return None
+    try:
+        pickle.loads(pickle.dumps(error))
+        return error
+    except Exception:  # noqa: BLE001 — an unpicklable exception
+        return RuntimeError(f"{type(error).__name__}: {error}")
+
+
+def barrier(group=None) -> None:
+    """Every rank of ``group`` here before any goes on (through the
+    group's all-gather, so it works over gloo and NCCL alike)."""
+    if group is not None:
+        gather_objects(None, group)
+
+
+def on_rank0(fn, group=None):
+    """``fn()`` on rank 0 alone (the one process, without a group), in
+    one round: every rank gets rank 0's value, or raises its failure."""
+    out, err = None, None
+    if group_rank(group) == 0:
+        try:
+            out = fn()
+        except Exception as e:  # noqa: BLE001 — every rank raises
+            err = e
+    if group is not None:
+        out, first = gather_objects((out, picklable(err)), group)[0]
+        raise_first(err, [first])
+    elif err is not None:
+        raise err
+    return out
+
+
+def shared_tempdir(prefix: str, dir=None, group=None) -> str:
+    """A fresh scratch directory for the whole group: rank 0 makes it
+    with ``tempfile.mkdtemp(prefix=prefix, dir=dir)`` (first ``dir``
+    itself when it is missing) and every rank gets its path.  The ranks
+    must see one file system (one host, or a ``dir`` they share); a
+    failure on rank 0 raises on every rank."""
+    import os
+    import tempfile
+
+    def make():
+        if dir is not None:
+            os.makedirs(dir, exist_ok=True)
+        return tempfile.mkdtemp(prefix=prefix, dir=dir)
+
+    return on_rank0(make, group)
 
 
 def shard_span(values: Sequence, group=None) -> Tuple[int, int]:
@@ -220,8 +269,10 @@ def all_to_all(frames: Sequence[torch.Tensor], group=None) -> list:
     every rank the blocks bound for its shards."""
     EXCHANGES.add()
     if EXCHANGES.log is not None:
-        EXCHANGES.log.append(sum(f.numel() * f.element_size()
-                                 for f in frames))
+        # every shard's frame has one shape, so the group's volume is
+        # this rank's times the ranks
+        EXCHANGES.log.append(group_size(group) * sum(
+            f.numel() * f.element_size() for f in frames))
     x = torch.stack(list(frames))
     if group is None:
         return list(x.transpose(0, 1).unbind(0))

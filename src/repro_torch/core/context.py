@@ -114,14 +114,6 @@ class HPTMTContext:
         return range(self.rank * self.n_local,
                      (self.rank + 1) * self.n_local)
 
-    def require_virtual(self, what: str, item: str) -> None:
-        """Refuse a feature that does not run across ranks yet, instead of
-        computing on this rank's shards as if they were all of them."""
-        if self.group is not None:
-            raise NotImplementedError(
-                f"{what} does not run on a process group yet (ROADMAP "
-                f"Queue 1 item {item}); use a context without a group")
-
 
 def refuse_in_group(what: str, item: str) -> None:
     """For a service that takes no context: refuse to run inside a process

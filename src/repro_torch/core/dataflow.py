@@ -17,9 +17,9 @@ on the group: each rank chunks, transforms and concatenates its own
 shards, every barrier's exchange is the group's, and the sinks return
 what the virtual run returns (``collect`` this rank's blocks of it;
 ``reduce``, ``quantile`` and ``to_numpy`` the same value on every rank).
-Two methods still refuse a group, since what they hand over to does not
-run there yet (ROADMAP Queue 1 item 11c, part c): :meth:`TSet.lazy`
-(the lazy planner) and :meth:`TSet.from_spill` (the spill engine).
+:meth:`TSet.from_spill` streams this rank's blocks of a group's spill
+output, and :meth:`TSet.lazy` roots the lazy planner, which runs on the
+group too.
 
 One result differs from the reference on purpose: ``reduce(col, "mean")``
 returns the true mean (the summed per-chunk sums over the summed counts,
@@ -92,10 +92,8 @@ class TSet:
         spill report (recovered rows, residual losses) is folded into
         every materialization's :attr:`overflow_report`.  Duck-typed on
         ``.chunks()`` / ``.report`` so core never imports the spill
-        layer."""
+        layer.  On a group each rank takes its blocks of every chunk."""
         ctx = ctx or result._ctx
-        ctx.require_virtual("TSet.from_spill (it sources the spill "
-                            "engine's runs)", "11c, part c")
         return cls._source(result.chunks(), ctx, result.report)
 
     @classmethod
@@ -212,8 +210,6 @@ class TSet:
         materialization's overflow report is carried into the lazy
         lineage.
         """
-        self._ctx.require_virtual("TSet.lazy (it roots the lazy "
-                                  "planner)", "11c, part c")
         from ..plan import LazyFrame
         from ..plan.logical import source
 

@@ -250,7 +250,10 @@ class DataFrame:
         made under ``spill_workdir`` when one is given (else ``TMPDIR``)
         and removed afterwards; nothing else in ``spill_workdir`` is
         touched.  Extra keyword arguments apply to the in-memory path
-        only.
+        only.  On a process group both triggers are the group's — the
+        row count and the overflow are every rank's — so every rank
+        spills or none does, into one directory rank 0 makes (under a
+        ``spill_workdir`` every rank sees).
         """
         from ..spill import should_spill, spill_join
 

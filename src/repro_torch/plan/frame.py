@@ -15,6 +15,15 @@ run record), ``qerror_threshold=`` (the enforced cardinality contract)
 and ``policy=`` (stage checkpoints and resume); ``refine()`` re-takes
 join-order decisions from observed rows and ``explain(analyze=True)``
 annotates every step with what a run measured.
+
+On a context with a process group every rank builds and collects the
+same plan over its own shards.  Every decision is taken from values the
+same on every rank — the estimates and observed rows are the group's
+(``DistTable.num_rows`` is a collective), so the rules, the audit, the
+q-error threshold and ``refine()`` fire alike everywhere, and
+``explain()`` renders the virtual run's text; the whole-plan retry and
+stage commits are agreed across the ranks, the stage directory is one
+the group shares, and rank 0 alone appends to the ``ledger``.
 """
 from __future__ import annotations
 
@@ -40,7 +49,6 @@ class LazyFrame:
 
     def __init__(self, node: L.LogicalNode, ctx,
                  report: Optional[OverflowReport] = None):
-        ctx.require_virtual("the lazy planner", "11c, part c")
         self._node = node
         self._ctx = ctx
         self._report = report if report is not None else OverflowReport()
@@ -215,7 +223,7 @@ class LazyFrame:
 
             telemetry.record_overflow(report)
             C.record_qerrors(telemetry)
-        if ledger is not None:
+        if ledger is not None and self._ctx.rank == 0:
             from ..telemetry import ledger as Led
 
             Led.append(ledger, Led.collect_record(
@@ -287,23 +295,24 @@ class LazyFrame:
         """
         import contextlib
         import shutil
-        import tempfile
 
         from .. import telemetry as T
+        from ..core.array_ops import barrier, on_rank0, shared_tempdir
         from ..resilience import stages as S
 
         for kind, obj in plan._input_specs:
             if kind == "scan":  # route transient-read retries to scans
                 obj.policy = policy
 
+        group = self._ctx.group
         tmp_root = None
         ckpt_root = policy.checkpoint_dir
         if ckpt_root is None:
             # stages still give in-process retry memoization; without a
             # durable dir they simply cannot survive a process death
-            tmp_root = tempfile.mkdtemp(prefix="hptmt-stages-")
+            tmp_root = shared_tempdir("hptmt-stages-", group=group)
             ckpt_root = tmp_root
-        ckpt = S.StageCheckpointer(ckpt_root, fingerprint)
+        ckpt = S.StageCheckpointer(ckpt_root, fingerprint, group)
         committed = set(ckpt.committed_stages())
         resumed_from = max(committed) if committed else None
         plan.stage_hook = S.stage_hook(ckpt, policy=policy, ctx=self._ctx,
@@ -328,14 +337,16 @@ class LazyFrame:
                             stages=sum(s.stage for s in plan.steps)) as sp:
                     out, ovs = policy.run(
                         lambda: plan.fn(*plan.inputs()),
-                        site="plan.collect")
+                        site="plan.collect", group=group)
                     sp.block(out)
         finally:
             plan.stage_hook = None
         if not policy.keep_checkpoints:
             ckpt.remove()
         if tmp_root is not None:
-            shutil.rmtree(tmp_root, ignore_errors=True)
+            barrier(group)
+            on_rank0(lambda: shutil.rmtree(tmp_root, ignore_errors=True),
+                     group)
         return out, ovs
 
     def _collect_audited(self, plan: PhysicalPlan, rec, *, strict: bool):

@@ -45,6 +45,13 @@ hash join (reference DESIGN.md §8).
 
 ``inputs()`` (scan I/O) is lazy — ``explain()`` builds a full physical
 plan, with per-scan pushdown detail, without reading a single data page.
+
+On a process group every rank lowers the same plan (the estimates read
+source tables' global row counts) and runs it on its own shards.  A run
+starts with one small all-gather that tells every rank whether any rank
+has a ``plan.step.<i>`` fault armed; only then does each step agree on
+its fault site, so a fault raises on every rank and never leaves a rank
+waiting in the step's exchange.
 """
 from __future__ import annotations
 
@@ -120,7 +127,7 @@ def _hash_exact(layout: Layout, keys) -> bool:
 
 
 def _restamp(dt: DistTable, part) -> DistTable:
-    return DistTable(dt.columns, dt.counts, part)
+    return DistTable(dt.columns, dt.counts, part, dt.group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +177,7 @@ class PhysicalPlan:
         # the whole subtree) or run + commit.  None (the default) keeps
         # the executed program the hookless one.
         self.stage_hook = None
+        self._chaos = False  # a plan.step fault armed on some rank (fn)
         self._est_cache: Dict[int, float] = {}
         run, layout = self._lower(root)
         self.out_layout = layout
@@ -195,6 +203,12 @@ class PhysicalPlan:
         return self._materialized
 
     def fn(self, *tables) -> Tuple[DistTable, Dict[str, torch.Tensor]]:
+        from ..core.array_ops import gather_objects
+        from ..resilience import faults
+
+        group = self.ctx.group
+        self._chaos = group is not None and any(
+            gather_objects(faults.armed("plan.step."), group))
         out, ovs = self._run(tables)
         out = _restamp(out, _to_stamp(self.out_layout, self.ctx.n_shards))
         return out, dict(ovs)
@@ -243,15 +257,26 @@ class PhysicalPlan:
         """Per-node fault-injection + stage-checkpoint wrapper.
 
         Always fires the ``plan.step.<idx>`` chaos site (a cheap no-op
-        unless a fault is armed).  With a ``stage_hook`` installed and
-        the step at an exchange boundary, the hook decides: restore a
-        committed snapshot — the child closures never run, so a resumed
-        run executes only the suffix — or run and commit.
+        unless a fault is armed; on a group where ``fn`` found one armed
+        on some rank, one small all-gather a step, so it raises on every
+        rank).  With a ``stage_hook`` installed and the step at an
+        exchange boundary, the hook decides: restore a committed snapshot
+        — the child closures never run, so a resumed run executes only
+        the suffix — or run and commit.
         """
+        from ..core.array_ops import raise_together
         from ..resilience import faults
 
         def wrapped(tables):
-            faults.fire(f"plan.step.{step.index}")
+            if not self._chaos:
+                faults.fire(f"plan.step.{step.index}")
+            else:
+                err = None
+                try:
+                    faults.fire(f"plan.step.{step.index}")
+                except Exception as e:  # noqa: BLE001 — every rank raises
+                    err = e
+                raise_together(err, self.ctx.group)
             hook = self.stage_hook
             if hook is None or not step.stage:
                 return run(tables)
@@ -408,7 +433,7 @@ class PhysicalPlan:
                     max_matches=mm, method=method, out_capacity=cap, **kw)
                 out = DistTable(
                     {rename.get(c, c): v for c, v in out.columns.items()},
-                    out.counts, out.partitioning)
+                    out.counts, out.partitioning, out.group)
             else:
                 out, ov = table_ops.join(
                     lt, rt, keys, ctx=self.ctx, how=how, max_matches=mm,

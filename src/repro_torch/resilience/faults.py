@@ -198,6 +198,14 @@ def _trigger(a: _Arm, path: Optional[str]) -> None:
     raise InjectedFault(errno.EIO, "injected io error", where)
 
 
+def armed(prefix: str = "") -> bool:
+    """Whether a fault not yet fired is armed at a site starting with
+    ``prefix`` (programmatically or from the environment)."""
+    _sync_env()
+    return any(not a.fired and a.site.startswith(prefix)
+               for a in _prog_arms + _env_arms)
+
+
 def fire(site: str, path: Optional[str] = None) -> None:
     """Injection point: no-op unless a matching fault is armed.
 

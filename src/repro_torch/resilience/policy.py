@@ -13,6 +13,17 @@ and where stage checkpoints go.  It is consumed by
   * stage-checkpoint commits (``checkpoint.commit`` site),
   * ``workflow.WorkflowEngine`` — task retries with backoff.
 
+On a process group a retry loop is local or agreed.  A site whose work
+is this process's own I/O — a scan's fragment reads (``scan.read``), a
+spill run's write (``spill.write``) — retries on its own rank: its
+peers never wait on it inside the attempt.  A site whose attempt holds
+collectives — the whole-plan run (``plan.collect``), a stage commit
+(``checkpoint.commit``), a workflow task — passes ``group=``: every
+rank learns every rank's outcome of each attempt, so every rank
+retries, or raises, together, and no rank waits in a collective its
+peers left.  Faults inside such an attempt must reach every rank first
+(the plan's ``plan.step.<i>`` sites and the commit raise together).
+
 Retry taxonomy: the **fatal** tuple (``ValueError``/``TypeError``/...)
 fails fast — those are programming or corruption errors where a retry
 re-runs the same deterministic failure (``HptIntegrityError`` and
@@ -82,28 +93,43 @@ class FaultPolicy:
         return d * (1.0 + self.jitter * frac)
 
     def run(self, fn: Callable, *, site: str,
-            sleep: Callable[[float], None] = time.sleep):
+            sleep: Callable[[float], None] = time.sleep, group=None):
         """Invoke ``fn()`` under this policy's retry loop.
 
         Publishes a ``retry.<site>`` counter per retry on the active
         telemetry collector; raises the original exception for fatal
-        failures and :class:`RetryBudgetExceeded` on exhaustion.
+        failures and :class:`RetryBudgetExceeded` on exhaustion.  With a
+        process ``group`` each attempt's outcome is the group's: every
+        rank's exception, each classified on the rank that raised it,
+        reaches every rank.  If any of them is fatal every rank raises
+        (its own exception, or else the first fatal one); if every
+        failure is retryable every rank retries.
         """
         from .. import telemetry
+        from ..core.array_ops import gather_objects, picklable
 
         last: Optional[BaseException] = None
         for attempt in range(self.max_retries + 1):
+            mine, out = None, None
             try:
-                return fn()
+                out = fn()
             except Exception as e:  # noqa: BLE001 — classified below
-                if not self.is_retryable(e):
-                    raise
-                last = e
-                if attempt < self.max_retries:
-                    rec = telemetry.current()
-                    if rec is not None:
-                        rec.metrics.count(f"retry.{site}")
-                    sleep(self.delay(attempt, site))
+                mine = e
+            retryable = mine is not None and self.is_retryable(mine)
+            every = [(mine, retryable)] if group is None else \
+                gather_objects((picklable(mine), retryable), group)
+            failed = [(e, ok) for e, ok in every if e is not None]
+            if not failed:
+                return out
+            fatal = [e for e, ok in failed if not ok]
+            if fatal:
+                raise mine if mine is not None else fatal[0]
+            last = mine if mine is not None else failed[0][0]
+            if attempt < self.max_retries:
+                rec = telemetry.current()
+                if rec is not None:
+                    rec.metrics.count(f"retry.{site}")
+                sleep(self.delay(attempt, site))
         raise RetryBudgetExceeded(
             f"site {site!r}: all {self.max_retries + 1} attempts failed; "
             f"last error: {type(last).__name__}: {last}") from last

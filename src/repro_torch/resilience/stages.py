@@ -31,6 +31,18 @@ injection site, then ``os.rename`` to ``stage_<i>/`` — the same
 tmp-then-rename discipline as ``io.native`` / ``checkpoint.manager``.
 A reader only ever sees fully-committed stages; stale ``*.tmp`` dirs
 from a crash are swept on open.
+
+On a process group (``StageCheckpointer(..., group=)``, which
+``collect(policy=...)`` passes from its context) the stage directory is
+one the whole group sees.  A commit gathers the stage's global arrays
+(``DistTable.to_numpy_blocks``, a collective) and rank 0 alone writes
+``data.hpt`` + ``meta.json`` — the virtual run's files, byte for byte;
+every rank then fires the ``checkpoint.commit`` site, and rank 0 renames
+only after every rank got there, each step's failure raised on every
+rank.  A restore has each rank keep its own shards' blocks, so a
+snapshot committed by 4 ranks resumes on 2 of the same ``n_shards`` (the
+files are global arrays: resume is elastic).  Rank 0 alone sweeps stale
+``*.tmp`` dirs and lists the committed stages for every rank.
 """
 from __future__ import annotations
 
@@ -39,22 +51,14 @@ import json
 import os
 import shutil
 import zlib
-from typing import Dict, List, Optional, Tuple
-
-import numpy as np
+from typing import List, Optional, Tuple
 
 from .. import telemetry
+from ..core.array_ops import barrier, on_rank0, raise_together
 from ..core.table import DistTable
 from ..io.native import read_hpt, write_hpt
 
 from . import faults
-
-
-def _global_columns(dt: DistTable) -> Dict[str, np.ndarray]:
-    """The table's columns as the reference lays them out: one
-    ``(n_shards * capacity, ...)`` host array a column, shard-major."""
-    cols, _, _ = dt.to_numpy_blocks()
-    return cols
 
 
 # ---------------------------------------------------------------------------
@@ -62,13 +66,13 @@ def _global_columns(dt: DistTable) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 def _canon_value(key: str, v) -> str:
     if key == "table":  # source DistTable: schema + counts + data identity
-        cols = _global_columns(v)
+        cols, counts, _ = v.to_numpy_blocks()   # every shard's, on a group
         crc = 0
         for name in sorted(cols):
             crc = zlib.crc32(cols[name].tobytes(), crc)
             crc = zlib.crc32(f"{name}:{cols[name].dtype}".encode(), crc)
         return (f"table(cols={list(sorted(cols))},"
-                f"counts={v.counts.tolist()},"
+                f"counts={counts.tolist()},"
                 f"part={v.partitioning!r},crc={crc:08x})")
     if key == "dataset":
         frags = sorted((f.path, int(f.rows), f.shard)
@@ -94,7 +98,9 @@ def _canon_node(node) -> str:
 def plan_fingerprint(root, ctx) -> str:
     """Deterministic identity of (optimized logical plan, shard count):
     equal across processes for the same pipeline over the same data, so
-    a restart resumes its own stages and never someone else's."""
+    a restart resumes its own stages and never someone else's — on any
+    number of ranks (a collective on a group: source tables are read
+    whole)."""
     text = f"shards={ctx.n_shards}|{_canon_node(root)}"
     return hashlib.sha256(text.encode()).hexdigest()[:24]
 
@@ -124,10 +130,15 @@ def _part_from_json(d):
 # stage checkpoint store
 # ---------------------------------------------------------------------------
 class StageCheckpointer:
-    """One pipeline's stage snapshots: ``<root>/<fingerprint>/stage_<i>/``."""
+    """One pipeline's stage snapshots: ``<root>/<fingerprint>/stage_<i>/``
+    (``group``: the process group that shares ``root_dir``)."""
 
-    def __init__(self, root_dir: str, fingerprint: str):
+    def __init__(self, root_dir: str, fingerprint: str, group=None):
         self.dir = os.path.join(root_dir, fingerprint)
+        self.group = group
+        on_rank0(self._open, group)
+
+    def _open(self) -> None:
         os.makedirs(self.dir, exist_ok=True)
         for name in os.listdir(self.dir):  # sweep torn commits
             if name.endswith(".tmp"):
@@ -138,13 +149,17 @@ class StageCheckpointer:
         return os.path.join(self.dir, f"stage_{index}")
 
     def committed_stages(self) -> List[int]:
-        out = []
-        for name in os.listdir(self.dir):
-            if name.startswith("stage_") and not name.endswith(".tmp") \
-                    and os.path.exists(os.path.join(self.dir, name,
-                                                    "meta.json")):
-                out.append(int(name[len("stage_"):]))
-        return sorted(out)
+        """The committed stage indices (rank 0's listing, on every rank)."""
+        def listing():
+            out = []
+            for name in os.listdir(self.dir):
+                if name.startswith("stage_") and not name.endswith(".tmp") \
+                        and os.path.exists(os.path.join(self.dir, name,
+                                                        "meta.json")):
+                    out.append(int(name[len("stage_"):]))
+            return sorted(out)
+
+        return on_rank0(listing, self.group)
 
     def commit(self, index: int, dt: DistTable,
                ovs: List[Tuple[str, object]], *, op: str = "") -> str:
@@ -152,24 +167,36 @@ class StageCheckpointer:
         counts + partitioning + overflow lineage so far)."""
         final = self._stage_dir(index)
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        cols = _global_columns(dt)
-        rows = next(iter(cols.values())).shape[0] if cols else 0
-        write_hpt(os.path.join(tmp, "data.hpt"), cols, rows)
-        meta = {"stage": int(index), "op": op,
-                "n_shards": int(dt.n_shards),
-                "capacity": int(dt.capacity),
-                "counts": dt.counts.tolist(),
-                "partitioning": _part_to_json(dt.partitioning),
-                "ovs": [[label, int(v)] for label, v in ovs]}
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(meta, f)
-        faults.fire("checkpoint.commit", path=final)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)  # commit point: all-or-nothing
+        cols, counts, part = dt.to_numpy_blocks()
+
+        def write():
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            rows = next(iter(cols.values())).shape[0] if cols else 0
+            write_hpt(os.path.join(tmp, "data.hpt"), cols, rows)
+            meta = {"stage": int(index), "op": op,
+                    "n_shards": int(dt.n_shards),
+                    "capacity": int(dt.capacity),
+                    "counts": counts.tolist(),
+                    "partitioning": _part_to_json(part),
+                    "ovs": [[label, int(v)] for label, v in ovs]}
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+
+        def rename():
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)  # commit point: all-or-nothing
+
+        on_rank0(write, self.group)
+        err = None
+        try:
+            faults.fire("checkpoint.commit", path=final)
+        except Exception as e:  # noqa: BLE001 — every rank raises
+            err = e
+        raise_together(err, self.group)
+        on_rank0(rename, self.group)
         return final
 
     def restore(self, index: int, ctx) -> Tuple[DistTable,
@@ -183,11 +210,14 @@ class StageCheckpointer:
         cols, _ = read_hpt(os.path.join(d, "data.hpt"))
         dt = DistTable.from_numpy_blocks(
             cols, meta["counts"], _part_from_json(meta["partitioning"]),
-            device=ctx.device)
+            ctx=ctx)
         return dt, [(label, int(v)) for label, v in meta["ovs"]]
 
     def remove(self) -> None:
-        shutil.rmtree(self.dir, ignore_errors=True)
+        """Delete the snapshots (rank 0, once every rank is done)."""
+        barrier(self.group)
+        on_rank0(lambda: shutil.rmtree(self.dir, ignore_errors=True),
+                 self.group)
 
 
 def stage_hook(ckpt: StageCheckpointer, *, ctx, policy=None,
@@ -199,9 +229,9 @@ def stage_hook(ckpt: StageCheckpointer, *, ctx, policy=None,
     below it is skipped, which is what makes a resumed run a strict
     suffix (counted at the exchange choke point).  Otherwise it runs the
     step and commits the result (never while ``torch.compile`` traces:
-    commits are host I/O on concrete tensors).
+    commits are host I/O on concrete tensors).  On a group ``ckpt`` is
+    the group's and the commit's retry is agreed across its ranks.
     """
-    ctx.require_virtual("stage checkpoints", "11c, part c")
     have = set(ckpt.committed_stages()) if committed is None else committed
 
     def hook(step, layout, thunk):
@@ -220,7 +250,7 @@ def stage_hook(ckpt: StageCheckpointer, *, ctx, policy=None,
                     policy.run(
                         lambda: ckpt.commit(step.index, out, ovs,
                                             op=step.op),
-                        site="checkpoint.commit")
+                        site="checkpoint.commit", group=ctx.group)
                 else:
                     ckpt.commit(step.index, out, ovs, op=step.op)
             have.add(step.index)

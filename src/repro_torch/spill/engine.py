@@ -34,6 +34,18 @@ refinement is dominated by duplicates of a single key, which no
 partitioner can split; it is processed in one piece at an enlarged
 capacity (still exact) and counted in ``SpillStats.oversized``.
 
+On a process group (``ctx.group``) each rank partitions only its own
+shards' rows and writes runs for every destination shard into the ONE
+store directory the group shares (``store.py``), so the shared disk is
+the exchange: a spilled pair still makes no exchange.  Every decision —
+the partition count, skips, capacities, refinement — is taken from the
+group's index of runs, the same on every rank, and each rank then loads
+the runs of its own shards (a window partition: every rank reads and
+sorts the whole partition and keeps its own blocks), writes its shards'
+output runs under their global shard ids, and rows, ``SpillStats`` and
+the report are the virtual run's.  Each round of file I/O ends in
+``SpillStore.sync``, so a failure on any rank raises on every rank.
+
 Each pair runs as a plain call of the operator (the reference compiles
 it with ``jax.jit``).  Under an active telemetry collector the engine
 opens the reference's ``spill.write`` / ``spill.read`` /
@@ -52,6 +64,7 @@ import torch
 
 from .. import telemetry
 from ..core import table_ops
+from ..core.array_ops import gather_objects
 from ..core.context import HPTMTContext
 from ..core.exchange import H1_NAME, H2_NAME, LANES_NAME
 from ..core.report import OverflowReport
@@ -100,7 +113,8 @@ def iter_host_chunks(src) -> Iterator[HostChunk]:
     Accepts a :class:`DistTable` (one chunk per shard, copied to the
     host), an iterable of DistTables (e.g. ``ScanSource.chunks()``), or an
     iterable of already-host ``(dict, n)`` tuples.  Only valid rows are
-    yielded; padding never touches disk.
+    yielded; padding never touches disk.  On a group a DistTable yields
+    this rank's shards, and host tuples are taken as this rank's rows.
     """
     if isinstance(src, DistTable):
         src = [src]
@@ -114,21 +128,43 @@ def iter_host_chunks(src) -> Iterator[HostChunk]:
             yield ({k: np.asarray(v)[:n] for k, v in cols.items()}, int(n))
 
 
-def _total_rows_or_none(*srcs) -> Optional[int]:
-    """Source size without consuming it, or None for generator sources."""
+def _local_rows_or_none(srcs) -> Optional[int]:
     total = 0
     for s in srcs:
-        if isinstance(s, DistTable):
-            total += int(s.num_rows())
-        elif isinstance(s, (list, tuple)):
-            for item in s:
-                if isinstance(item, DistTable):
-                    total += int(item.num_rows())
-                else:
-                    total += int(item[1])
-        else:
+        items = [s] if isinstance(s, DistTable) else s
+        if not isinstance(items, (list, tuple)):
             return None
+        for item in items:
+            total += (int(item.counts.sum()) if isinstance(item, DistTable)
+                      else int(item[1]))
     return total
+
+
+def _total_rows_or_none(*srcs, group=None) -> Optional[int]:
+    """Source size without consuming it (summed over the group's ranks),
+    or None for generator sources (on any rank)."""
+    local = _local_rows_or_none(srcs)
+    if group is None:
+        return local
+    every = gather_objects(local, group)
+    return None if any(n is None for n in every) else sum(every)
+
+
+def _tag_rows(store: SpillStore, tag: str) -> int:
+    """Rows the group wrote under ``tag`` (every valid row once)."""
+    return sum(store.rows(tag, q) for q in store.partitions(tag))
+
+
+def _round(store: SpillStore, fn):
+    """``fn()`` as one round of this rank's file I/O; a failure on any
+    rank raises on every rank (``SpillStore.sync``)."""
+    out, err = None, None
+    try:
+        out = fn()
+    except Exception as e:  # noqa: BLE001 — every rank raises
+        err = e
+    store.sync(err)
+    return out
 
 
 def _schema_of(cols: Dict[str, np.ndarray]) -> Dict[str, Tuple]:
@@ -253,7 +289,9 @@ def _refine_oversized(store: SpillStore, tags: Sequence[str],
     the ``h1`` bits already consumed) — the same child mapping on every
     operand, so join pairs stay aligned.  Returns the final partition
     ids, the count refined, and the count left oversized (single-key
-    skew: unsplittable, processed whole at an enlarged capacity).
+    skew: unsplittable, processed whole at an enlarged capacity).  On a
+    group the loads come from the group's index, and each rank re-buckets
+    the runs it wrote (``h2 % fanout`` maps alike everywhere).
     """
     def load(q: int) -> int:
         if per_shard:
@@ -280,14 +318,19 @@ def _refine_oversized(store: SpillStore, tags: Sequence[str],
         base = next_q
         next_q += fanout
         refined += 1
-        for t in tags:
-            for s in store.shards(t, q):
-                for cols, n in store.iter_runs(t, q, s):
-                    sub = (cols[H2_NAME] % np.uint32(fanout)).astype(np.int64)
-                    sq = np.full(n, s, np.int64)
-                    _write_buckets(store, t, cols, base + sub, sq,
-                                   _bucket_order(sub, fanout))
-            store.drop_partition(t, q)
+
+        def rewrite(q=q, fanout=fanout, base=base):
+            for t in tags:
+                for s in store.shards(t, q):
+                    for cols, n in store.iter_runs(t, q, s, own=True):
+                        sub = (cols[H2_NAME]
+                               % np.uint32(fanout)).astype(np.int64)
+                        sq = np.full(n, s, np.int64)
+                        _write_buckets(store, t, cols, base + sub, sq,
+                                       _bucket_order(sub, fanout))
+                store.drop_partition(t, q)
+
+        _round(store, rewrite)
         pending.extend((base + j, 1) for j in range(fanout))
     return sorted(set(final)), refined, oversized
 
@@ -312,11 +355,12 @@ def _round_capacity(rows: int, budget_rows: int) -> int:
 def _load_hash_partition(store: SpillStore, tag: str, q: int,
                          schema: Dict[str, Tuple], keys: Sequence[str],
                          ctx: HPTMTContext, capacity: int) -> DistTable:
-    """Re-ingest one partition with TRUE hash-partitioning metadata."""
+    """Re-ingest one partition with TRUE hash-partitioning metadata (on a
+    group, this rank's shards of it)."""
     with telemetry.span("spill.read", tag=tag, partition=q) as sp:
         tables = []
         total = 0
-        for s in range(ctx.n_shards):
+        for s in ctx.local_shards:
             cols, n = store.read_partition(tag, q, s)
             total += n
             if n == 0:
@@ -327,8 +371,8 @@ def _load_hash_partition(store: SpillStore, tag: str, q: int,
                                             capacity=capacity,
                                             device=ctx.device))
         sp.attrs["rows"] = total
-        return DistTable.from_shard_tables(
-            tables, ctx, partitioning=(tuple(keys), ctx.n_shards))
+        return DistTable.from_local_tables(
+            tables, ctx, capacity, partitioning=(tuple(keys), ctx.n_shards))
 
 
 def _load_range_partition(store: SpillStore, tag: str, q: int,
@@ -340,7 +384,9 @@ def _load_range_partition(store: SpillStore, tag: str, q: int,
     The whole partition is lex-sorted by its carried lanes on the host
     and block-sliced into contiguous per-shard chunks — exactly the
     layout the sample-sort exchange would have produced, so the per-pair
-    window runs its zero-exchange / zero-sort elided path.
+    window runs its zero-exchange / zero-sort elided path.  On a group
+    every rank reads and sorts the whole partition and keeps the blocks
+    of its own shards.
     """
     with telemetry.span("spill.read", tag=tag, partition=q) as sp:
         cols, n = store.read_partition(tag, q)
@@ -349,31 +395,33 @@ def _load_range_partition(store: SpillStore, tag: str, q: int,
             cols = dict(_empty_cols(schema))
             cols[LANES_NAME] = np.zeros((0, len(keys)), np.uint32)
         order = np_lex_order(cols[LANES_NAME])
-        cols = {k: v[order] for k, v in cols.items()
+        cols = {k: v for k, v in cols.items()
                 if k not in (H1_NAME, H2_NAME, LANES_NAME)}
         per = max(1, math.ceil(n / ctx.n_shards))
         tables = []
-        for s in range(ctx.n_shards):
-            a, b = min(s * per, n), min((s + 1) * per, n)
+        for s in ctx.local_shards:
+            rows = order[min(s * per, n):min((s + 1) * per, n)]
             tables.append(Table.from_arrays(
-                {k: v[a:b] for k, v in cols.items()}, num_rows=b - a,
+                {k: v[rows] for k, v in cols.items()}, num_rows=len(rows),
                 capacity=capacity, device=ctx.device))
-        return DistTable.from_shard_tables(
-            tables, ctx,
+        return DistTable.from_local_tables(
+            tables, ctx, capacity,
             partitioning=range_partitioning(keys, ascending, ctx.n_shards))
 
 
-def _write_output(store: SpillStore, q: int, dt: DistTable) -> int:
-    """Persist a pair result shard-by-shard; returns rows written."""
-    total = 0
-    for s, n in enumerate(dt.counts.tolist()):
-        if n == 0:
-            continue
-        store.write_run("out", q, s,
-                        {k: _host(v[s, :n]) for k, v in dt.columns.items()},
-                        n)
-        total += n
-    return total
+def _write_output(store: SpillStore, q: int, dt: DistTable,
+                  ctx: HPTMTContext) -> int:
+    """Persist a pair result shard-by-shard under global shard ids and
+    enter it in the group's index; returns the group's rows written."""
+    def write():
+        for i, n in enumerate(dt.counts.tolist()):
+            if n:
+                store.write_run("out", q, ctx.local_shards[i],
+                                {k: _host(v[i, :n])
+                                 for k, v in dt.columns.items()}, n)
+
+    _round(store, write)
+    return store.rows("out", q)
 
 
 def _out_schema_of(dt: DistTable) -> Dict[str, Tuple]:
@@ -426,19 +474,26 @@ class SpillResult:
         return self._partitioning
 
     def chunks(self, *, drop: bool = True) -> Iterator[DistTable]:
-        """Stream output partitions as metadata-carrying DistTables."""
+        """Stream output partitions as metadata-carrying DistTables (on a
+        group, this rank's blocks of each)."""
+        ctx = self._ctx
         for q in self._store.partitions("out"):
             cap = max(max((self._store.rows("out", q, s)
-                           for s in range(self._ctx.n_shards)), default=0), 1)
-            tables = []
-            for s in range(self._ctx.n_shards):
-                cols, n = self._store.read_partition("out", q, s)
-                if n == 0:
-                    cols = _empty_cols(self._out_schema)
-                tables.append(Table.from_arrays(
-                    cols, num_rows=n, capacity=cap, device=self._ctx.device))
-            yield DistTable.from_shard_tables(
-                tables, self._ctx, partitioning=self._partitioning)
+                           for s in range(ctx.n_shards)), default=0), 1)
+
+            def load(q=q, cap=cap):
+                tables = []
+                for s in ctx.local_shards:
+                    cols, n = self._store.read_partition("out", q, s)
+                    if n == 0:
+                        cols = _empty_cols(self._out_schema)
+                    tables.append(Table.from_arrays(
+                        cols, num_rows=n, capacity=cap, device=ctx.device))
+                return tables
+
+            yield DistTable.from_local_tables(
+                _round(self._store, load), ctx, cap,
+                partitioning=self._partitioning)
             if drop:
                 self._store.drop_partition("out", q)
 
@@ -498,17 +553,19 @@ def spill_join(left, right, keys: Sequence[str], *, ctx: HPTMTContext,
     still counted (it is a semantic cap, not a memory one) under
     ``"join.fanout"`` in the report.
     """
-    ctx.require_virtual("the spill engine", "11c, part c")
     report = report if report is not None else OverflowReport()
     keys = tuple(keys)
-    store = SpillStore(workdir, policy=policy)
+    store = SpillStore(workdir, policy=policy, group=ctx.group)
     try:
-        n_parts = plan_partitions(_total_rows_or_none(left, right),
-                                  ctx.n_shards, budget_rows)
-        ln, lschema = _partition_hash(store, "left", left, keys,
-                                      ctx.n_shards, n_parts)
-        rn, rschema = _partition_hash(store, "right", right, keys,
-                                      ctx.n_shards, n_parts)
+        n_parts = plan_partitions(
+            _total_rows_or_none(left, right, group=ctx.group), ctx.n_shards,
+            budget_rows)
+        (_, lschema), (_, rschema) = _round(store, lambda: (
+            _partition_hash(store, "left", left, keys, ctx.n_shards,
+                            n_parts),
+            _partition_hash(store, "right", right, keys, ctx.n_shards,
+                            n_parts)))
+        ln, rn = _tag_rows(store, "left"), _tag_rows(store, "right")
         parts, refined, oversized = _refine_oversized(
             store, ("left", "right"), ctx.n_shards, budget_rows, n_parts,
             per_shard=True)
@@ -529,10 +586,11 @@ def spill_join(left, right, keys: Sequence[str], *, ctx: HPTMTContext,
                 continue
             lcap = _round_capacity(max(lrows, 1), budget_rows)
             rcap = _round_capacity(max(rrows, 1), budget_rows)
-            ldt = _load_hash_partition(store, "left", q, lschema, keys,
-                                       ctx, lcap)
-            rdt = _load_hash_partition(store, "right", q, rschema, keys,
-                                       ctx, rcap)
+            ldt, rdt = _round(store, lambda: (
+                _load_hash_partition(store, "left", q, lschema, keys, ctx,
+                                     lcap),
+                _load_hash_partition(store, "right", q, rschema, keys, ctx,
+                                     rcap)))
             with telemetry.span("spill.reentry", op="table.join",
                                 partition=q) as sp:
                 out, ov = table_ops.join(ldt, rdt, keys, ctx=ctx, how=how,
@@ -543,7 +601,7 @@ def spill_join(left, right, keys: Sequence[str], *, ctx: HPTMTContext,
             report.add("join.fanout", ov)
             if out_schema is None:
                 out_schema = _out_schema_of(out)
-            stats.rows_out += _write_output(store, q, out)
+            stats.rows_out += _write_output(store, q, out, ctx)
             stats.pairs += 1
             store.drop_partition("left", q)
             store.drop_partition("right", q)
@@ -567,15 +625,15 @@ def spill_groupby(src, keys: Sequence[str],
     Each key lives in exactly one spill partition, so per-partition
     grouping is exact with no cross-partition merge step.
     """
-    ctx.require_virtual("the spill engine", "11c, part c")
     report = report if report is not None else OverflowReport()
     keys = tuple(keys)
-    store = SpillStore(workdir, policy=policy)
+    store = SpillStore(workdir, policy=policy, group=ctx.group)
     try:
-        n_parts = plan_partitions(_total_rows_or_none(src), ctx.n_shards,
-                                  budget_rows)
-        n, schema = _partition_hash(store, "in", src, keys, ctx.n_shards,
-                                    n_parts)
+        n_parts = plan_partitions(_total_rows_or_none(src, group=ctx.group),
+                                  ctx.n_shards, budget_rows)
+        _, schema = _round(store, lambda: _partition_hash(
+            store, "in", src, keys, ctx.n_shards, n_parts))
+        n = _tag_rows(store, "in")
         parts, refined, oversized = _refine_oversized(
             store, ("in",), ctx.n_shards, budget_rows, n_parts,
             per_shard=True)
@@ -589,7 +647,8 @@ def spill_groupby(src, keys: Sequence[str],
                 store.drop_partition("in", q)
                 continue
             cap = _round_capacity(rows, budget_rows)
-            dt = _load_hash_partition(store, "in", q, schema, keys, ctx, cap)
+            dt = _round(store, lambda: _load_hash_partition(
+                store, "in", q, schema, keys, ctx, cap))
             with telemetry.span("spill.reentry", op="table.groupby",
                                 partition=q) as sp:
                 out, ov = table_ops.groupby_aggregate(dt, keys, tuple(aggs),
@@ -598,7 +657,7 @@ def spill_groupby(src, keys: Sequence[str],
             report.add("groupby.slots", ov)
             if out_schema is None:
                 out_schema = _out_schema_of(out)
-            stats.rows_out += _write_output(store, q, out)
+            stats.rows_out += _write_output(store, q, out, ctx)
             stats.pairs += 1
             store.drop_partition("in", q)
         report.add_recovered("spill.groupby", n)
@@ -623,27 +682,30 @@ def spill_window(src, partition_by, order_by, aggs, *, ctx: HPTMTContext,
     host-sorted by its carried lanes, block-sliced, and evaluated on the
     range-elided window path — zero exchanges, zero sorts.
     """
-    ctx.require_virtual("the spill engine", "11c, part c")
     report = report if report is not None else OverflowReport()
     pkeys = (partition_by,) if isinstance(partition_by, str) \
         else tuple(partition_by)
-    store = SpillStore(workdir, policy=policy)
+    store = SpillStore(workdir, policy=policy, group=ctx.group)
     try:
         it = iter_host_chunks(src)
-        try:
-            first = next(it)
-        except StopIteration:
-            raise ValueError("spill source yielded no chunks") from None
-        colnames = tuple(sorted(first[0]))
-        okeys, asc_o = table_ops._normalize_order(order_by, ascending,
-                                                  colnames, "order_by")
+
+        def peek():  # one round: an empty source on any rank fails all
+            try:
+                first = next(it)
+            except StopIteration:
+                raise ValueError("spill source yielded no chunks") from None
+            return first, table_ops._normalize_order(
+                order_by, ascending, tuple(sorted(first[0])), "order_by")
+
+        first, (okeys, asc_o) = _round(store, peek)
         keys = pkeys + okeys
         asc = (True,) * len(pkeys) + asc_o
-        n_parts = plan_partitions(_total_rows_or_none(src), ctx.n_shards,
-                                  budget_rows)
-        n, schema = _partition_window(store, "in",
-                                      itertools.chain([first], it),
-                                      pkeys, keys, asc, n_parts)
+        n_parts = plan_partitions(_total_rows_or_none(src, group=ctx.group),
+                                  ctx.n_shards, budget_rows)
+        _, schema = _round(store, lambda: _partition_window(
+            store, "in", itertools.chain([first], it), pkeys, keys, asc,
+            n_parts))
+        n = _tag_rows(store, "in")
         parts, refined, oversized = _refine_oversized(
             store, ("in",), ctx.n_shards, budget_rows * ctx.n_shards,
             n_parts, per_shard=False)
@@ -657,8 +719,8 @@ def spill_window(src, partition_by, order_by, aggs, *, ctx: HPTMTContext,
                 continue
             per = max(1, math.ceil(qrows / ctx.n_shards))
             cap = _round_capacity(per, budget_rows)
-            dt = _load_range_partition(store, "in", q, schema, keys, asc,
-                                       ctx, cap)
+            dt = _round(store, lambda: _load_range_partition(
+                store, "in", q, schema, keys, asc, ctx, cap))
             with telemetry.span("spill.reentry", op="table.window",
                                 partition=q) as sp:
                 out, ov = table_ops.window_aggregate(dt, pkeys, okeys, aggs,
@@ -668,7 +730,7 @@ def spill_window(src, partition_by, order_by, aggs, *, ctx: HPTMTContext,
             report.add("window.truncated", ov)
             if out_schema is None:
                 out_schema = _out_schema_of(out)
-            stats.rows_out += _write_output(store, q, out)
+            stats.rows_out += _write_output(store, q, out, ctx)
             stats.pairs += 1
             store.drop_partition("in", q)
         report.add_recovered("spill.window", n)

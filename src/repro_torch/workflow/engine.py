@@ -16,6 +16,16 @@ deterministic bug.  The journal records a content hash per completed
 task (its name + dependency edges), so resuming against a *changed* DAG
 is detected and refused instead of silently skipping different work.
 
+Inside a process group (one formed in this process, or one ``torchrun``
+launched it into) every rank runs the same DAG over its own shards, and
+tasks may hold collectives.  Each task's outcome is the group's: a
+failure on any rank is a failure on every rank, retried together under
+the policy (``FaultPolicy.run(..., group=)``) or raised together as
+:class:`WorkflowError`.  The journal is one file every rank sees: every
+rank reads it when the engine is built (so the stale-journal refusal
+fires on every rank), and rank 0 writes it once every rank finished the
+task, before any rank goes on.
+
 Also hosts the straggler monitor: per-step wall-time dispersion tracking
 that a production launcher would use to evict/replace slow hosts.
 """
@@ -29,7 +39,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from .. import telemetry
-from ..core.context import refuse_in_group
+from ..core.array_ops import on_rank0
 from ..resilience.policy import FaultPolicy, RetryBudgetExceeded
 
 
@@ -58,10 +68,25 @@ def _task_hash(name: str, deps: Sequence[str]) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
+def _world_group():
+    """The process group this process runs in (``None``: one process); a
+    ``torchrun`` launch whose group is not formed yet raises."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD if dist.get_world_size() > 1 else None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError(
+            "the workflow engine runs inside a process group of "
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']} ranks, which is not "
+            "formed yet: call torch.distributed.init_process_group first")
+    return None
+
+
 class WorkflowEngine:
     def __init__(self, journal_path: Optional[str] = None,
                  policy: Optional[FaultPolicy] = None):
-        refuse_in_group("the workflow engine", "11c, part c")
+        self.group = _world_group()
         self.tasks: Dict[str, Task] = {}
         self.journal_path = journal_path
         self.policy = policy  # engine-wide default retry policy
@@ -77,11 +102,17 @@ class WorkflowEngine:
         return self
 
     def _journal(self):
-        if self.journal_path:
+        """Write the journal (rank 0) before any rank goes on."""
+        if not self.journal_path:
+            return
+
+        def write():
             tmp = self.journal_path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(self._done, f)
             os.replace(tmp, self.journal_path)
+
+        on_rank0(write, self.group)
 
     def run(self, context: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Execute the DAG; returns {task: result}. Resumes past journaled
@@ -121,7 +152,8 @@ class WorkflowEngine:
             try:
                 with telemetry.span(f"workflow.{name}",
                                     deps=list(task.deps)) as sp:
-                    results[name] = pol.run(call, site=f"workflow.{name}")
+                    results[name] = pol.run(call, site=f"workflow.{name}",
+                                            group=self.group)
                     sp.attrs["attempts"] = attempts[0]
             except RetryBudgetExceeded as e:
                 raise WorkflowError(

@@ -211,9 +211,10 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
 
 def test_later_slices_raise(monkeypatch):
     # the runtime services are ported: a planned collect runs under a
-    # collector and explain(analyze=True) annotates it; the services on a
-    # process group are still a later slice (tests/test_torch_group.py
-    # holds each refusal on a real group)
+    # collector and explain(analyze=True) annotates it; the workflow
+    # engine runs on a process group (tests/test_torch_group_services.py),
+    # and one rank of a torchrun launch whose group is not formed yet
+    # raises instead of running alone
     from repro_torch import telemetry
     from repro_torch.workflow import WorkflowEngine
 
@@ -224,7 +225,7 @@ def test_later_slices_raise(monkeypatch):
     assert rec.audits[-1]["consistent"] is True
     assert "audit: predicted=0 counted=0" in lf.explain(analyze=True)
     monkeypatch.setenv("WORLD_SIZE", "4")  # one rank of a torchrun group
-    with pytest.raises(NotImplementedError, match="process group"):
+    with pytest.raises(RuntimeError, match="process group"):
         WorkflowEngine()
 
 

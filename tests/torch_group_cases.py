@@ -275,35 +275,17 @@ def run_cases(ctx) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# what a group refuses (ROADMAP items 11b and 11c, part c)
+# what a group refuses (ROADMAP item 11b)
 # ---------------------------------------------------------------------------
 def _refusals(ctx, tmp: str) -> dict:
-    from repro_torch.core.dataflow import TSet
     from repro_torch.launch import serve
-    from repro_torch.resilience.stages import StageCheckpointer, stage_hook
-    from repro_torch.workflow import WorkflowEngine
 
-    df = DataFrame.from_dict(LEFT, ctx, capacity=LEFT_CAP)
     return {
-        "spill_join": lambda: df.join(df, ["k"], spill=True),
-        "spill_groupby": lambda: df.groupby(["g"], [("v", "sum")],
-                                            spill=True),
-        "spill_window": lambda: df.window(["g"], ["k"]).agg(
-            [("v", "sum")], rows=2, spill=True),
-        "lazy_planner": lambda: df.lazy(),
-        "tset_lazy": lambda: TSet.from_table(df.table, ctx).lazy(),
-        # refused before the spill result is read
-        "tset_from_spill": lambda: TSet.from_spill(None, ctx),
-        "stage_checkpoints": lambda: stage_hook(
-            StageCheckpointer(tmp, "f"), ctx=ctx),
-        "workflow": lambda: WorkflowEngine(),
         "serve_launcher": lambda: serve.main(["--arch", "smollm-360m"]),
     }
 
 
-REFUSED = ("spill_join", "spill_groupby", "spill_window", "lazy_planner",
-           "tset_lazy", "tset_from_spill", "stage_checkpoints", "workflow",
-           "serve_launcher")
+REFUSED = ("serve_launcher",)
 
 
 #: the training launcher's run on a group: reduced smollm, 2 steps, a
